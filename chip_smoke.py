@@ -7,15 +7,22 @@ Phases, each printing a line; any failure propagates (non-zero exit):
 
 1. device: the card's name and power limit (fails without CUDA);
 2. build: the CUDA kernels from dvda_tpu_torch/csrc with nvcc (sm_90a),
-   one nvcc per source, all started together;
+   one nvcc per source, all started together; ptxas's registers, shared
+   memory and stack per kernel (a stack frame in K234 or K6a fails);
 3. synthesis: a 30-second 5.1/96k/24 MLP disc, and a three-track
    CPPM-encrypted disc — that MLP stream, 30 s of PCM 5.1/96k/24 and 30 s
    of PCM 2.0/48k/16 — with a plaintext copy;
 4. kernels: each kernel against its plain PyTorch version on the card,
    bit-exact (tolerance 0: the decode is integer arithmetic), at the shapes
-   the main paths give it, with CUDA-event times for both — K5's inputs
-   come from the skip-values parse of the disc's first chunk, K8's from
-   the PCM track's chunks, K7's from the encrypted disc's first AOB batch;
+   the main paths give it (K234 also at the edge shapes of
+   ``testutil.OUTPUT_STAGE_EDGES``) — K5's inputs come from the
+   skip-values parse of the disc's first chunk, K8's from the PCM track's
+   chunks, K7's from the encrypted disc's first AOB batch.  A kernel's
+   time is its time on the card: CUDA events around calls the host has
+   all queued while the card waits in a spin kernel.  Beside it is the
+   CUDA-event time of calls made back to back, which also holds the
+   wrapper's host time where that is longer; the plain versions' times
+   are of the latter kind;
 5. MLP path, in both modes: the MLP disc decoded through
    ``open_disc(...)...read_all_packed()`` on the card in standard mode and
    in device-Huffman mode, each byte-compared with the port's C++
@@ -32,7 +39,8 @@ Phases, each printing a line; any failure propagates (non-zero exit):
 7. general path: a 30-second 5.1/96k/24 MLP disc of 12 sections that
    alternate 2 x 40 and 4 x 20 samples per frame, which the pipelined
    driver abandons: K6a and K6b against their plain versions at its
-   shapes, then the disc through ``open_disc(...).read_all_packed()``,
+   shapes (K6a also at ``testutil.LANE_PACK_EDGES``), then the disc
+   through ``open_disc(...).read_all_packed()``,
    which must take the general path (K6a, K1, K6b launched) and equal the
    host-complete bytes; walls against host-complete;
 8. fused decode step: ``parallel.step.decode_step`` on
@@ -86,6 +94,8 @@ SECONDS = 30
 CHUNK, NB0, S0, L0 = 256, 16, 40, 80
 KERNELS = ("mlp_filter", "output_stage", "huffman_decode", "pcm_unpack",
            "c2_decrypt", "lane_pack", "series_remix", "frame_remix")
+#: kernels whose build fails if ptxas gives them a stack frame
+NO_STACK = ("output_stage", "lane_pack")
 #: the fused decode step's batch: __graft_entry__'s production shape
 STEP = dict(F=256, C=8, NB=16, S=40, C_out=6, seed=0)
 #: the Python-engine disc (5 s) and the bail disc (1 s), headline format
@@ -135,13 +145,19 @@ def phase_build():
     seconds, log = build_kernels(verbose=True)
     kernel_library()
     print(f"[build] nvcc sm_90a: {seconds:.2f} s")
-    kernel = "?"
+    kernel, stack = "?", {}
     for line in log.splitlines():  # ptxas: registers, stack, spills
         named = [k for k in KERNELS if f"{k}_kernel" in line]
         if "Compiling entry function" in line and named:
             kernel = named[0]
         elif "Used" in line or "spill" in line:
             print(f"[build] {kernel}: {line.split(':', 1)[-1].strip()}")
+            if "stack frame" in line:
+                stack[kernel] = int(line.split()[0])
+    # the tiled designs keep their tables in shared memory, not on a stack
+    for k in NO_STACK:
+        _require(stack.get(k) == 0, f"ptxas: {k} has a stack frame of "
+                                    f"{stack.get(k)} bytes")
     # the port's C++ host runtime (parse, mp_pack) builds with g++ at first
     # use: do it here, outside the timed decodes
     t0 = time.perf_counter()
@@ -162,6 +178,45 @@ def _cuda_ms(fn, reps: int) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def _device_ms(fn, reps: int) -> float:
+    """Mean milliseconds of card time per call of ``fn``: CUDA events
+    around ``reps`` calls that the host queues while the card is held in
+    a spin kernel, so that the card then runs them back to back.  Unlike
+    :func:`_cuda_ms` it leaves out the host's time between launches, which
+    exceeds a short kernel's (a wrapper's checks and allocation take tens
+    of us).  If the spin ends before the last call is queued, the run is
+    repeated with a spin twice as long."""
+    import torch
+
+    cycles = 20_000_000  # ~10 ms at the H100's clock
+    for _ in range(5):
+        torch.cuda.synchronize()
+        torch.cuda._sleep(cycles)
+        spun = torch.cuda.Event()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        spun.record()
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        queued = not spun.query()  # the card still spinning: all queued
+        torch.cuda.synchronize()
+        if queued:
+            return start.elapsed_time(stop) / reps
+        cycles *= 2
+    raise RuntimeError("chip_smoke: the host did not queue the calls "
+                       "within a 160 ms spin")
+
+
+def _times(fn, reps: int) -> tuple[float, float]:
+    """(card ms with every call queued ahead, ms per call back to back
+    by CUDA events) for ``fn``, after 3 warm-up calls."""
+    for _ in range(3):
+        fn()
+    return _device_ms(fn, reps), _cuda_ms(fn, reps)
 
 
 def _record(err: int, ms: float, plain_ms: float, nbytes: int, ops: int,
@@ -283,7 +338,8 @@ def phase_kernels(stream, plain, enc_path):
                                                mlp_filter_blocks_tl_reference)
     from dvda_tpu_torch.ops.rematrix import (output_stage,
                                              output_stage_reference)
-    from dvda_tpu_torch.testutil import filter_inputs, output_stage_inputs
+    from dvda_tpu_torch.testutil import (OUTPUT_STAGE_EDGES, filter_inputs,
+                                         output_stage_inputs)
 
     dev = torch.device("cuda", 0)
     results = {}
@@ -305,16 +361,15 @@ def phase_kernels(stream, plain, enc_path):
         print(f"[kernels] K1 mlp_filter {label} B={B} NB={NB} S={S}: "
               f"bit-exact")
         if label == "headline":
-            for _ in range(3):
-                mlp_filter_blocks_tl(*args)
-            ms = _cuda_ms(lambda: mlp_filter_blocks_tl(*args), 50)
+            ms, ev = _times(lambda: mlp_filter_blocks_tl(*args), 50)
             plain_ms = _cuda_ms(
                 lambda: mlp_filter_blocks_tl_reference(*args), 2)
             # per live sample: 8 FIR + 8 IIR int64 multiply-adds, the
             # shift, the quant mask and the residual add
             k1_cost = (_nbytes(*args, *got), 36 * int(args[7].sum()))
-    print(f"[kernels] K1 headline: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.2f} ms per call (CUDA events)")
+    print(f"[kernels] K1 headline: kernel {ms:.4f} ms on the card "
+          f"({ev:.4f} ms per call back to back), plain {plain_ms:.2f} ms "
+          "per call")
     results["mlp_filter"] = _record(k1_err, ms, plain_ms, *k1_cost)
 
     # K234 at the headline chunk: 256 chains x 8 frames x L0=80, 6 channels,
@@ -334,19 +389,34 @@ def phase_kernels(stream, plain, enc_path):
         k234_err = max(k234_err, err)
     print(f"[kernels] K234 output_stage {Bc} chains x {fpc} frames x "
           f"L0={L0}, {C} ch, 3 matrices, 24- and 32-bit out: bit-exact")
+    # the tiles' and strips' edges: ragged chain counts, L0 of 40-200
+    for (eBc, efpc, eL0, C_tot, C_out, n_mats, nbytes,
+         extreme) in OUTPUT_STAGE_EDGES:
+        eargs = [torch.from_numpy(v).to(dev) for v in output_stage_inputs(
+            eL0 + n_mats, eBc, efpc, eL0, C_tot, C_out,
+            extreme=extreme).values()]
+        kw = dict(chains=eBc, n_mats=n_mats, nbytes=nbytes)
+        err = _max_err(output_stage(*eargs, **kw),
+                       output_stage_reference(*eargs, **kw))
+        _require(err == 0, f"K234 {eBc} chains, L0={eL0}: max |kernel - "
+                           f"plain| = {err}")
+    shapes = "; ".join(f"{s[0]}x{s[1]}x{s[2]}, {s[3]}->{s[4]} ch, {s[5]} "
+                       f"slots, nbytes {s[6]}" for s in OUTPUT_STAGE_EDGES)
+    print(f"[kernels] K234 edge shapes (chains x frames x L0): {shapes}: "
+          "bit-exact")
     kw = dict(chains=Bc, n_mats=3, nbytes=3)
-    for _ in range(3):
-        output_stage(*args, **kw)
-    ms = _cuda_ms(lambda: output_stage(*args, **kw), 50)
+    ms, ev = _times(lambda: output_stage(*args, **kw), 50)
     plain_ms = _cuda_ms(lambda: output_stage_reference(*args, **kw), 3)
-    print(f"[kernels] K234 headline: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.2f} ms per call (CUDA events)")
     # per sample: 3 matrices x (10 multiply-adds, shift, mask, add), the
     # LFSR step, and per output channel its pick, shift and 3-byte store
     ops = Bc * fpc * L0 * (3 * 24 + 8 + C * 4)
     results["output_stage"] = _record(
         k234_err, ms, plain_ms, _nbytes(*args, output_stage(*args, **kw)),
         ops)
+    print(f"[kernels] K234 headline: kernel {ms:.4f} ms on the card "
+          f"({ev:.4f} ms per call back to back), bound "
+          f"{results['output_stage']['bound_ms']:.4f} ms, plain "
+          f"{plain_ms:.2f} ms per call")
 
     # K5 at the headline chunk: both substreams (2 and 4 channels,
     # 256 chains x 16 blocks = 4,096 lanes of 40 samples each), the last
@@ -392,12 +462,11 @@ def phase_kernels(stream, plain, enc_path):
         for args, kw in calls:
             decode_residuals_reference(*args, **kw)
 
-    for _ in range(3):
-        k5_chunk()
-    ms = _cuda_ms(k5_chunk, 50)
+    ms, ev = _times(k5_chunk, 50)
     plain_ms = _cuda_ms(k5_plain, 3)
-    print(f"[kernels] K5 headline chunk (2 launches): kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.2f} ms per chunk (CUDA events)")
+    print(f"[kernels] K5 headline chunk (2 launches): kernel {ms:.4f} ms on "
+          f"the card ({ev:.4f} ms per chunk back to back), plain "
+          f"{plain_ms:.2f} ms per chunk")
     # of the stream words the chunk reads its own frames' share (8 of the
     # disc's frames per chain); per decoded residual about 24 integer
     # operations (peek, table lookup, LSB extract, sign, offset, quant)
@@ -436,9 +505,7 @@ def _k9_check(args, n_mats: int, label: str, reps: int = 50):
     err = _max_err(got, ref)
     _require(err == 0, f"K9 {label}: max |kernel - plain| = {err}")
     _require(bool(got.any()), f"K9 {label}: all-zero output")
-    for _ in range(3):
-        frame_remix(*args, n_mats)
-    ms = _cuda_ms(lambda: frame_remix(*args, n_mats), reps)
+    ms, ev = _times(lambda: frame_remix(*args, n_mats), reps)
     plain_ms = _cuda_ms(lambda: _k9_plain(args, n_mats), 3)
     F, L, C = args[0].shape
     C_out = got.shape[2]
@@ -451,9 +518,12 @@ def _k9_check(args, n_mats: int, label: str, reps: int = 50):
     nbytes = (_nbytes(args[0], args[1], *args[2:7], args[8], got)
               + active * L * 4)
     ops = L * (active * (2 * (C + 2) + 4) + F * 3 * C_out)
+    rec = _record(err, ms, plain_ms, nbytes, ops)
     print(f"[kernels] K9 frame_remix {label} [F, L, C] = {F, L, C}, "
-          f"{n_mats} slots -> C_out={C_out}: bit-exact; kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.2f} ms per call (CUDA events)")
+          f"{n_mats} slots -> C_out={C_out}: bit-exact; kernel {ms:.4f} ms "
+          f"on the card ({ev:.4f} ms per call back to back), bound "
+          f"{rec['bound_ms']:.6f} ms ({rec['bound_by']}, "
+          f"{nbytes / 1e6:.2f} MB), plain {plain_ms:.2f} ms per call")
     return err, ms, plain_ms, nbytes, ops
 
 
@@ -520,11 +590,9 @@ def _kernel_k8(plain, dev):
     _require(bool(got.any()), "K8 full track: all-zero output")
     times = {}
     for nbytes in (3, 0):
-        for _ in range(3):
-            decode_chunks_device(chunks, bits, ch, nbytes)
         times[nbytes] = (
-            _cuda_ms(lambda: decode_chunks_device(chunks, bits, ch, nbytes),
-                     50),
+            _times(lambda: decode_chunks_device(chunks, bits, ch, nbytes),
+                   50)[0],
             _cuda_ms(lambda: decode_chunks_reference(chunks, bits, ch,
                                                      nbytes), 2))
     # the packed form is a byte permutation: one index_select of the
@@ -536,12 +604,12 @@ def _kernel_k8(plain, dev):
     packed = decode_chunks_device(chunks, bits, ch, nb)
     _require(torch.equal(chunks.index_select(1, table).reshape(packed.shape),
                          packed), "K8: index_select differs from the kernel")
-    library_ms = _cuda_ms(lambda: chunks.index_select(1, table), 50)
+    library_ms = _times(lambda: chunks.index_select(1, table), 50)[0]
     print(f"[kernels] K8 full {SECONDS} s {ch}-ch {bits}-bit track, {n} chunks "
           f"({host_chunks.nbytes / 1e6:.2f} MB): bit-exact; kernel "
-          f"{times[3][0]:.4f} ms packed / {times[0][0]:.4f} ms int32, plain "
-          f"{times[3][1]:.2f} / {times[0][1]:.2f} ms per call, index_select "
-          f"{library_ms:.4f} ms (CUDA events)")
+          f"{times[3][0]:.4f} ms packed / {times[0][0]:.4f} ms int32, "
+          f"index_select {library_ms:.4f} ms on the card; plain "
+          f"{times[3][1]:.2f} / {times[0][1]:.2f} ms per call")
     return _record(err, times[3][0], times[3][1], _nbytes(chunks, packed),
                    packed.numel(), library_ms)
 
@@ -583,20 +651,19 @@ def _kernel_k7(enc_path, dev):
     # each timed launch decrypts its own copy of the batch (the kernel
     # works in place: a decrypted sector is no longer scrambled)
     reps = 50
-    copies = torch.from_numpy(enc).to(dev).unsqueeze(0).repeat(reps + 3, 1,
-                                                               1)
-    for i in range(3):
-        decrypt_sectors_device(copies[i], k_au)
-    it = iter(range(3, reps + 3))
-    ms = _cuda_ms(lambda: decrypt_sectors_device(copies[next(it)], k_au),
-                  reps)
+    # enough copies for the warm-up, a repeated queued run and the events
+    copies = torch.from_numpy(enc).to(dev).unsqueeze(0).repeat(6 * reps + 3,
+                                                               1, 1)
+    it = iter(range(6 * reps + 3))
+    ms, ev = _times(lambda: decrypt_sectors_device(copies[next(it)], k_au),
+                    reps)
     # the plain version leaves its input as it is: 2 calls on the batch
     batch = torch.from_numpy(enc).to(dev)
     plain_ms = _cuda_ms(lambda: decrypt_sectors_reference(batch, k_au, False),
                         2)
     print(f"[kernels] K7 one {enc.shape[0]}-sector batch: kernel {ms:.4f} "
-          f"ms per launch, plain {plain_ms:.2f} ms per call (2 calls) (CUDA "
-          f"events)")
+          f"ms on the card ({ev:.4f} ms per launch back to back), plain "
+          f"{plain_ms:.2f} ms per call (2 calls)")
     # in place: each sector read and written once.  Per scrambled sector
     # (the host C2 found every one of the batch scrambled) 5 content-key
     # c2_g calls of ~300 operations and 240 8-byte blocks x 10 rounds of
@@ -926,6 +993,7 @@ def _kernels_k6(subs, tabs, F: int, hc32, smi: str):
                                                    series_remix,
                                                    series_remix_reference)
     from dvda_tpu_torch.ops.mlp_filter import mlp_filter_blocks_tl
+    from dvda_tpu_torch.testutil import LANE_PACK_EDGES, general_inputs
 
     err = 0
     packed = []
@@ -943,6 +1011,19 @@ def _kernels_k6(subs, tabs, F: int, hc32, smi: str):
     shapes = [tuple(p[0].shape) for p in packed]
     print(f"[general] K6a lane_pack, K1 inputs [NB, S, B] {shapes}: "
           "bit-exact")
+    # ragged tiles: lane counts off the 128-lane tile, every substream width
+    dev = subs[0]["res"].device
+    lanes = []
+    for n_ch, S, n_blocks, extreme in LANE_PACK_EDGES:
+        (u,), _ = general_inputs(0, n_blocks=n_blocks, S=S, n_ch=(n_ch,),
+                                 extreme=extreme)
+        u = {k: v if k == "S" else torch.from_numpy(v).to(dev)
+             for k, v in u.items()}
+        e = max(_max_err(g, r) for g, r in zip(
+            lane_pack(u), lane_pack_reference(u), strict=True))
+        _require(e == 0, f"K6a {n_ch} ch, S={S}: max |kernel - plain| = {e}")
+        lanes.append(f"{u['bidx'].shape[0] * n_ch} lanes of {n_ch} ch, S={S}")
+    print(f"[general] K6a edge shapes ({'; '.join(lanes)}): bit-exact")
 
     def k6a():
         for u in subs:
@@ -958,11 +1039,9 @@ def _kernels_k6(subs, tabs, F: int, hc32, smi: str):
         for res0, at in takes:
             res0.take(at)
 
-    for _ in range(3):
-        k6a()
-    k6a_ms = _cuda_ms(k6a, 20)
+    k6a_ms, k6a_ev = _times(k6a, 20)
     k6a_plain_ms = _cuda_ms(k6a_plain, 2)
-    take_ms = _cuda_ms(k6a_take, 20)
+    take_ms, take_ev = _times(k6a_take, 20)
     # inputs: the parse's tables; outputs: K1's nine arguments.  About 8
     # integer operations per output element (index arithmetic, select)
     n_out = sum(t.numel() for p in packed for t in p)
@@ -972,8 +1051,10 @@ def _kernels_k6(subs, tabs, F: int, hc32, smi: str):
                               *(t for p in packed for t in p)),
                       8 * n_out, take_ms)
     print(f"[general] {smi}; K6a both substreams: kernel {k6a_ms:.4f} ms, "
-          f"plain {k6a_plain_ms:.2f} ms, torch.take (residuals only) "
-          f"{take_ms:.4f} ms per call (CUDA events)")
+          f"torch.take (residuals only) {take_ms:.4f} ms on the card "
+          f"({k6a_ev:.4f} / {take_ev:.4f} ms per call back to back), bound "
+          f"{k6a_rec['bound_ms']:.4f} ms, plain {k6a_plain_ms:.2f} ms per "
+          "call")
 
     # K6b on K1's outputs of those inputs
     outs = [(mlp_filter_blocks_tl(*p[:8], p[8], p[8])[0], u["series_idx"],
@@ -987,9 +1068,7 @@ def _kernels_k6(subs, tabs, F: int, hc32, smi: str):
              "K6a + K1 + K6b differ from the host-complete reconstruction")
     print(f"[general] K6b series_remix [T, C] = {tuple(y.shape)}: bit-exact, "
           "and equal to host-complete")
-    for _ in range(3):
-        series_remix(outs, *tabs)
-    k6b_ms = _cuda_ms(lambda: series_remix(outs, *tabs), 20)
+    k6b_ms, k6b_ev = _times(lambda: series_remix(outs, *tabs), 20)
     k6b_plain_ms = _cuda_ms(lambda: series_remix_reference(outs, *tabs), 2)
     # per sample: the frame search (~3 operations per step), 6 matrices x
     # (10 multiply-adds, shift, mask, add), per output channel its pick
@@ -1000,8 +1079,9 @@ def _kernels_k6(subs, tabs, F: int, hc32, smi: str):
     k6b_rec = _record(e6b, k6b_ms, k6b_plain_ms,
                       sum(4 * T * n for _, _, n in outs)
                       + _nbytes(*(o[1] for o in outs), *tabs, y), ops)
-    print(f"[general] {smi}; K6b: kernel {k6b_ms:.4f} ms, plain "
-          f"{k6b_plain_ms:.2f} ms per call (CUDA events)")
+    print(f"[general] {smi}; K6b: kernel {k6b_ms:.4f} ms on the card "
+          f"({k6b_ev:.4f} ms per call back to back), plain "
+          f"{k6b_plain_ms:.2f} ms per call")
     return {"lane_pack": k6a_rec, "series_remix": k6b_rec}
 
 

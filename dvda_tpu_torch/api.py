@@ -205,6 +205,9 @@ class TrackReader:
         #: what the MLP decode reports (``path``: which driver ran)
         self.decode_info: dict = {}
         self._cursor = 0
+        #: dvda_tpu's reader would hold its whole-track decode (see
+        #: :meth:`read_range`); the port's cache says nothing of that
+        self._whole = False
         self._probe()
 
     def _cfg(self) -> DecodeConfig:
@@ -408,6 +411,10 @@ class TrackReader:
         return out
 
     def read_all(self) -> np.ndarray:
+        self._whole = True
+        return self._rest()
+
+    def _rest(self) -> np.ndarray:
         data = self._decoded
         out = data[self._cursor :]
         self._cursor = data.shape[0]
@@ -428,14 +435,29 @@ class TrackReader:
                 if out.dtype == np.uint8:
                     self._cursor = self._packed_frames = out.shape[0]
                     return out.tobytes()
-                self.__dict__["_decoded"] = out  # empty track: int32 zeros
-        return pack_samples_le(self.read_all(), self.bits_per_sample)
+                self.__dict__["_decoded"] = out  # general path, or empty
+        # dvda_tpu keeps no whole-track decode after a packed one
+        if not (self.codec == "MLP" and self.bits_per_sample in (16, 24)
+                and self._cursor == 0
+                and self.decode_info.get("path") in ("pipelined", "uniform")):
+            self._whole = True
+        return pack_samples_le(self._rest(), self.bits_per_sample)
 
     def read_range(self, start_frame: int, pcm_frames: int) -> np.ndarray:
-        """Frames ``[start_frame, start_frame + pcm_frames)`` of the full
-        decode.  Does not move the cursor."""
-        start = max(0, start_frame)
-        return self._decoded[start : start_frame + pcm_frames]
+        """Frames ``[start_frame, start_frame + pcm_frames)`` of the track,
+        as dvda_tpu's reader gives them.  Does not move the cursor.
+
+        dvda_tpu serves the range from its MLP segment reader, clamped to
+        the track (empty when it ends at or before frame 0), on an MLP
+        track of the native path while it holds no whole-track decode
+        (``read`` and ``seek`` keep none, ``read_all`` does); everywhere
+        else it slices the whole decode, where a negative start counts
+        from the end."""
+        data = self._decoded
+        if (self.codec == "MLP" and not self._whole
+                and self.decode_info.get("path") not in ("engine", "spec")):
+            return data[max(0, start_frame) : max(0, start_frame + pcm_frames)]
+        return data[start_frame : start_frame + pcm_frames]
 
     def iter_packed(self, segment_pcm_frames: int | None = None):
         raise NotImplementedError("streaming segment decode is not ported "

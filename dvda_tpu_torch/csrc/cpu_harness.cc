@@ -23,13 +23,29 @@ extern "C" void cpu_lane_pack(
     int32_t* o_fir, int32_t* o_iir, int32_t* o_init, int32_t* o_shift,
     int32_t* o_quant, uint8_t* o_reset, int32_t* o_blen, int32_t* state0,
     int B, int NB, int S, int n_ch) {
-  int64_t n = (int64_t)NB * S * B;
-  if ((int64_t)B * NB > n) n = (int64_t)B * NB;
-  if ((int64_t)B * 8 > n) n = (int64_t)B * 8;
-  for (int64_t i = 0; i < n; ++i)
-    lane_pack_elem(i, B, NB, S, n_ch, res, res_off, lens, bidx, bmask, rc_fir,
-                   rc_iir, iir_init, shift, quant, iir_reset, res_tl, o_fir,
-                   o_iir, o_init, o_shift, o_quant, o_reset, o_blen, state0);
+  // the kernel's tiles of whole chains, in order; each tile's lanes
+  // resolve their block once per chain position
+  const int Bc = B / n_ch, cpt = lane_pack_chains_per_tile(n_ch);
+  for (int b0 = 0; b0 < Bc; b0 += cpt) {
+    const int lane0 = b0 * n_ch;
+    const int nl = (Bc - b0 < cpt ? Bc - b0 : cpt) * n_ch;
+    for (int h = 0; h < 2 * nl; ++h)
+      dvda_store16(state0 + (int64_t)(lane0 + (h >> 1)) * 8 + 4 * (h & 1),
+                   DvdaWords4{});
+    for (int nb = 0; nb < NB; ++nb)
+      for (int j = 0; j < nl; ++j) {
+        const DvdaLaneSource l = lane_pack_source(
+            b0 + j / n_ch, j % n_ch, nb, NB, n_ch, res_off, lens, bidx,
+            bmask);
+        for (int h = 0; h < 2; ++h)
+          lane_pack_params(l, (int64_t)(lane0 + j) * NB + nb, h, rc_fir,
+                           rc_iir, iir_init, shift, quant, iir_reset, o_fir,
+                           o_iir, o_init, o_shift, o_quant, o_reset, o_blen);
+        for (int s = 0; s < S; ++s)
+          res_tl[((int64_t)nb * S + s) * B + lane0 + j] =
+              lane_pack_residual(l, s, res);
+      }
+  }
 }
 
 extern "C" void cpu_series_remix(
@@ -93,11 +109,30 @@ extern "C" void cpu_output_stage(
     const int8_t* mat_quant, const int8_t* out_shift, const int8_t* wave_perm,
     uint8_t* out, int Bc, int fpc, int L0, int C_tot, int C_out, int n_mats,
     int nbytes) {
-  for (int idx = 0; idx < Bc * fpc; ++idx)
-    output_stage_frame(idx, Bc, fpc, L0, C_tot, C_out, n_mats, nbytes, series,
-                       frame_seed, frame_nshift, byp, mat_coeff, mat_noise,
-                       mat_out, mat_active, mat_quant, out_shift, wave_perm,
-                       out);
+  // per (chain, frame): the tables, then the LFSR stepped over the
+  // frame's samples, each sample's words straight into its output row
+  const int nb = nbytes ? nbytes : 4;
+  const int64_t period = (int64_t)fpc * L0;
+  for (int b = 0; b < Bc; ++b)
+    for (int f = 0; f < fpc; ++f) {
+      const int64_t fi = (int64_t)b * fpc + f;
+      DvdaOutFrame fr;
+      for (int e = 0; e < kOutFrameItems; ++e)
+        output_stage_set_item(
+            fr, e, output_stage_item(fi, e, frame_nshift, mat_coeff,
+                                     mat_noise, mat_out, mat_active,
+                                     mat_quant, out_shift));
+      uint32_t seed = (uint32_t)frame_seed[fi];
+      for (int i = 0; i < L0; ++i) {
+        const int64_t t = (int64_t)f * L0 + i;
+        int32_t ch[8];
+        output_stage_channels(series, t, Bc, C_tot, b, ch);
+        output_stage_sample(fr, seed, n_mats, ch,
+                            (uint8_t)byp[(int64_t)b * period + t], wave_perm,
+                            C_out, nb, out + (b * period + t) * C_out * nb);
+        seed = dvda_lfsr_step(seed);
+      }
+    }
 }
 
 extern "C" void cpu_pcm_unpack(const uint8_t* chunks, int64_t n, int csize,

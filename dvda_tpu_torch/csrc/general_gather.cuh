@@ -1,24 +1,28 @@
 // K6 bodies: the gathers of the MLP general path around the AR filter.
 //
-// K6a lane_pack_elem -- element i of K1's inputs for one substream, gathered
-// from the parse's per-block arrays by the chain table ``bidx``:
+// K6a lane pack -- K1's inputs for one substream, gathered from the parse's
+// per-block arrays by the chain table ``bidx``:
 //   res       int32 ragged residuals, (block, channel, sample) order, block
 //             blk's channel c at res_off[blk] + c*lens[blk] (the parse's
 //             own layout: [NBt, n_ch, S] without the zero padding)
 //   res_off   int64 [NBt]    lens int32 [NBt]
 //   bidx      int32 [Bc, NB] block of chain b's position nb (clamped)
 //   bmask     uint8 [Bc, NB] position nb < chain b's length
-//   rc_fir, rc_iir, iir_init  int32 [NBt, n_ch, 8]
+//   rc_fir, rc_iir, iir_init  int32 [NBt, n_ch, 8]  (16-byte aligned)
 //   shift, quant  int32 [NBt, n_ch]      iir_reset uint8 [NBt, n_ch]
-// Lane = b*n_ch + c (chain-major, channel-minor: dvda_tpu's lane order).
-// Outputs, in K1's call layout (B = Bc*n_ch lanes):
+// Lane = b*n_ch + c (chain-major, channel-minor: dvda_tpu's lane order),
+// n_ch in 1..8.  Outputs, in K1's call layout (B = Bc*n_ch lanes):
 //   res_tl    int32 [NB, S, B]  (0 at samples >= the block's length)
 //   o_fir, o_iir, o_init  int32 [B, NB, 8]
 //   o_shift, o_quant  int32 [B, NB]   o_reset uint8 [B, NB] (& bmask)
 //   o_blen    int32 [B, NB] (lens[blk] under bmask, else 0)
 //   state0    int32 [B, 8] zeros
-// Element i < NB*S*B writes res_tl[i]; i < B*NB also writes parameter row
-// i = lane*NB + nb; i < B*8 also zeroes state0[i].
+// Per lane and chain position nb: lane_pack_source resolves the block once
+// (residual offset, length, table row, live flag); lane_pack_residual is
+// its sample s; lane_pack_params writes half h of parameter row lane*NB +
+// nb (4 words of each 8-word table; h = 0 also the four scalars).  A tile
+// is lane_pack_chains_per_tile(n_ch) whole chains, at most
+// kLanePackLanes lanes.
 //
 // K6b series_remix_sample -- output row t of the general path: the sample's
 // channels from K1's outputs (out_s [NB_s, S_s, B_s], channel 0 of t at
@@ -34,46 +38,69 @@
 #include "dvda_hd.cuh"
 #include "output_stage.cuh"
 
-DVDA_HD void lane_pack_elem(
-    int64_t i, int B, int NB, int S, int n_ch,
-    const int32_t* __restrict__ res, const int64_t* __restrict__ res_off,
-    const int32_t* __restrict__ lens, const int32_t* __restrict__ bidx,
-    const uint8_t* __restrict__ bmask, const int32_t* __restrict__ rc_fir,
-    const int32_t* __restrict__ rc_iir, const int32_t* __restrict__ iir_init,
-    const int32_t* __restrict__ shift, const int32_t* __restrict__ quant,
-    const uint8_t* __restrict__ iir_reset, int32_t* __restrict__ res_tl,
+constexpr int kLanePackLanes = 128;
+
+DVDA_HD int lane_pack_chains_per_tile(int n_ch) {
+  return kLanePackLanes / n_ch;
+}
+
+// Where lane (b, c) reads at chain position nb.
+struct DvdaLaneSource {
+  int64_t base;  // residual index of the lane's sample 0 in its block
+  int32_t len;   // the block's length
+  int32_t src;   // row of the per-block tables: blk*n_ch + c
+  int32_t live;  // nb < the chain's length
+};
+
+DVDA_HD DvdaLaneSource lane_pack_source(
+    int b, int c, int nb, int NB, int n_ch,
+    const int64_t* __restrict__ res_off, const int32_t* __restrict__ lens,
+    const int32_t* __restrict__ bidx, const uint8_t* __restrict__ bmask) {
+  const int64_t bi = (int64_t)b * NB + nb;
+  const int blk = bidx[bi];
+  DvdaLaneSource l;
+  l.len = lens[blk];
+  l.base = res_off[blk] + (int64_t)c * l.len;
+  l.src = blk * n_ch + c;
+  l.live = bmask[bi] != 0;
+  return l;
+}
+
+DVDA_HD int32_t lane_pack_residual(const DvdaLaneSource& l, int s,
+                                   const int32_t* __restrict__ res) {
+  return s < l.len ? res[l.base + s] : 0;
+}
+
+DVDA_HD void lane_pack_params(
+    const DvdaLaneSource& l, int64_t row, int h,
+    const int32_t* __restrict__ rc_fir, const int32_t* __restrict__ rc_iir,
+    const int32_t* __restrict__ iir_init, const int32_t* __restrict__ shift,
+    const int32_t* __restrict__ quant, const uint8_t* __restrict__ iir_reset,
     int32_t* __restrict__ o_fir, int32_t* __restrict__ o_iir,
     int32_t* __restrict__ o_init, int32_t* __restrict__ o_shift,
     int32_t* __restrict__ o_quant, uint8_t* __restrict__ o_reset,
-    int32_t* __restrict__ o_blen, int32_t* __restrict__ state0) {
-  if (i < (int64_t)NB * S * B) {
-    const int lane = (int)(i % B);
-    const int64_t r = i / B;
-    const int s = (int)(r % S);
-    const int nb = (int)(r / S);
-    const int b = lane / n_ch, c = lane % n_ch;
-    const int blk = bidx[(int64_t)b * NB + nb];
-    const int len = lens[blk];
-    res_tl[i] = s < len ? res[res_off[blk] + (int64_t)c * len + s] : 0;
+    int32_t* __restrict__ o_blen) {
+  const int64_t from = (int64_t)l.src * 8 + 4 * h, to = row * 8 + 4 * h;
+  // every load before the first store: they are all in flight at once
+  const DvdaWords4 fir = dvda_load16(rc_fir + from);
+  const DvdaWords4 iir = dvda_load16(rc_iir + from);
+  const DvdaWords4 init = dvda_load16(iir_init + from);
+  int32_t sh = 0, q = 0;
+  uint8_t rst = 0;
+  if (h == 0) {
+    sh = shift[l.src];
+    q = quant[l.src];
+    rst = iir_reset[l.src];
   }
-  if (i < (int64_t)B * NB) {
-    const int lane = (int)(i / NB), nb = (int)(i % NB);
-    const int b = lane / n_ch, c = lane % n_ch;
-    const int64_t bi = (int64_t)b * NB + nb;
-    const int blk = bidx[bi];
-    const bool live = bmask[bi] != 0;
-    const int64_t src = (int64_t)blk * n_ch + c;
-    for (int k = 0; k < 8; ++k) {
-      o_fir[i * 8 + k] = rc_fir[src * 8 + k];
-      o_iir[i * 8 + k] = rc_iir[src * 8 + k];
-      o_init[i * 8 + k] = iir_init[src * 8 + k];
-    }
-    o_shift[i] = shift[src];
-    o_quant[i] = quant[src];
-    o_reset[i] = (live && iir_reset[src] != 0) ? 1 : 0;
-    o_blen[i] = live ? lens[blk] : 0;
+  dvda_store16(o_fir + to, fir);
+  dvda_store16(o_iir + to, iir);
+  dvda_store16(o_init + to, init);
+  if (h == 0) {
+    o_shift[row] = sh;
+    o_quant[row] = q;
+    o_reset[row] = (l.live && rst != 0) ? 1 : 0;
+    o_blen[row] = l.live ? l.len : 0;
   }
-  if (i < (int64_t)B * 8) state0[i] = 0;
 }
 
 DVDA_HD void series_remix_sample(

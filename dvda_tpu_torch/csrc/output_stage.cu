@@ -6,30 +6,53 @@
 // dvda_tpu/ops/rematrix.py::rematrix_frames_tl and apply_output_stage_tl,
 // and the little-endian byte pack into WAV time order (:319-328, :370-372).
 //
-// Design: one thread per (chain, frame).  The frame's 6 matrix rows, noise
-// coefficients and output shifts sit in registers; the thread steps the
-// LFSR serially over the frame's L0 samples and, per sample, runs the
-// matrices in order on 8 channel registers, then shifts, permutes and packs
-// straight into the sample's output row.  Filter outputs are read
-// time-leading (chains minor), so a warp's loads are contiguous.
-//
-// Bound: latency, not bytes.  The headline chunk has 256 chains x 8 frames
-// = 2,048 threads, each a serial run of L0 = 80 samples of up to 6
-// dependent matrix dots, and each thread's byte stores run along its own
-// rows (not coalesced across the warp).  The design does nothing about that
-// yet; a later change can stage rows in shared memory or give a sample to
-// each thread.
+// Bound: latency.  The bytes are few (2.2 us at the headline chunk); what
+// costs is the chain of up to 6 dependent int64 matrix dots per sample,
+// the LFSR's serial steps and the table loads.  The design:
+//   * one thread per (chain, sample): a block takes a tile of CT chains x
+//     one frame (CT * Ls <= 512 threads, chains fastest so a warp's
+//     ``series`` loads stay chain-minor), in strips of Ls = min(L0, 160)
+//     samples; 163,840 threads at the headline chunk;
+//   * the block loads the tile's frame tables into shared memory, one
+//     item a thread with every load in flight before the first store;
+//     there the runtime slot count indexes them with no stack frame;
+//   * one thread per chain steps the frame's LFSR serially into shared
+//     memory while the other threads load their samples;
+//   * each sample's output bytes are staged in shared memory, and the
+//     block stores each chain-frame's contiguous run of L0 x C_out x
+//     nbytes bytes as whole 32-bit words (bytes only at an unaligned edge).
 #include <cuda_runtime.h>
 
 #include "output_stage.cuh"
 
 namespace {
 
-constexpr int kThreads = 64;
+constexpr int kThreads = 512;  // CT * Ls at most
+constexpr int kStrip = 160;    // samples of a frame a block holds at once
+constexpr int kMaxTile = 32;   // chains of a tile at most
+constexpr int kMaxRow = 32;    // output bytes of a sample at most (8 x 4)
+constexpr int kItems = 4;      // table items a thread loads at once
 
-__global__ void output_stage_kernel(
-    int Bc, int fpc, int L0, int C_tot, int C_out, int n_mats, int nbytes,
-    const int32_t* __restrict__ series, const int32_t* __restrict__ frame_seed,
+// The output word at byte a from the staged run [gs, ge) (staged[0] is
+// byte gs); bytes outside the run belong to other chain-frames.
+__device__ __forceinline__ void store_word(uint8_t* __restrict__ out,
+                                           int64_t a, int64_t gs, int64_t ge,
+                                           const uint8_t* staged) {
+  if (a >= gs && a + 4 <= ge) {
+    const uint8_t* p = staged + (a - gs);
+    *reinterpret_cast<uint32_t*>(out + a) =
+        p[0] | (uint32_t)p[1] << 8 | (uint32_t)p[2] << 16 |
+        (uint32_t)p[3] << 24;
+    return;
+  }
+  for (int k = 0; k < 4; ++k)
+    if (a + k >= gs && a + k < ge) out[a + k] = staged[a + k - gs];
+}
+
+__global__ void __launch_bounds__(kThreads) output_stage_kernel(
+    int Bc, int fpc, int L0, int tile_log2, int Ls, int C_tot, int C_out,
+    int n_mats, int nbytes, const int32_t* __restrict__ series,
+    const int32_t* __restrict__ frame_seed,
     const int8_t* __restrict__ frame_nshift, const int8_t* __restrict__ byp,
     const int16_t* __restrict__ mat_coeff,
     const int16_t* __restrict__ mat_noise, const int8_t* __restrict__ mat_out,
@@ -37,12 +60,74 @@ __global__ void output_stage_kernel(
     const int8_t* __restrict__ mat_quant,
     const int8_t* __restrict__ out_shift,
     const int8_t* __restrict__ wave_perm, uint8_t* __restrict__ out) {
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= Bc * fpc) return;
-  output_stage_frame(idx, Bc, fpc, L0, C_tot, C_out, n_mats, nbytes, series,
-                     frame_seed, frame_nshift, byp, mat_coeff, mat_noise,
-                     mat_out, mat_active, mat_quant, out_shift, wave_perm,
-                     out);
+  __shared__ DvdaOutFrame s_fr[kMaxTile];
+  __shared__ uint32_t s_seed[kThreads];
+  __shared__ uint32_t s_words[kThreads * kMaxRow / 4];
+  __shared__ int8_t s_perm[8];
+  uint8_t* const s_out = reinterpret_cast<uint8_t*>(s_words);
+  const int CT = 1 << tile_log2;
+  const int tid = threadIdx.x;
+  const int bl = tid & (CT - 1), i = tid >> tile_log2;
+  const int f = blockIdx.y, b0 = blockIdx.x << tile_log2;
+  const int nct = min(CT, Bc - b0);  // chains of this tile
+  const int nb = nbytes ? nbytes : 4;
+  const int row = C_out * nb;  // output bytes of a sample
+  const int64_t period = (int64_t)fpc * L0;
+
+  if (tid < C_out) s_perm[tid] = wave_perm[tid];
+  // the tile's frame tables, kItems items a thread in flight at once
+  const int items = nct * kOutFrameItems;
+  for (int k0 = tid; k0 < items; k0 += kItems * blockDim.x) {
+    int32_t v[kItems];
+#pragma unroll
+    for (int u = 0; u < kItems; ++u) {
+      const int k = k0 + u * blockDim.x, c = k / kOutFrameItems;
+      if (k < items)
+        v[u] = output_stage_item((int64_t)(b0 + c) * fpc + f,
+                                 k - c * kOutFrameItems, frame_nshift,
+                                 mat_coeff, mat_noise, mat_out, mat_active,
+                                 mat_quant, out_shift);
+    }
+#pragma unroll
+    for (int u = 0; u < kItems; ++u) {
+      const int k = k0 + u * blockDim.x, c = k / kOutFrameItems;
+      if (k < items) output_stage_set_item(s_fr[c], k - c * kOutFrameItems,
+                                           v[u]);
+    }
+  }
+  uint32_t seed =
+      tid < nct ? (uint32_t)frame_seed[(int64_t)(b0 + tid) * fpc + f] : 0u;
+  for (int i0 = 0; i0 < L0; i0 += Ls) {
+    const int ns = min(Ls, L0 - i0);
+    if (tid < nct)
+      for (int k = 0; k < ns; ++k) {
+        s_seed[k * CT + tid] = seed;
+        seed = dvda_lfsr_step(seed);
+      }
+    const bool live = bl < nct && i < ns;
+    const int64_t t = (int64_t)f * L0 + i0 + i;  // in-chain time
+    int32_t ch[8];
+    uint32_t bits = 0;
+    if (live) {
+      output_stage_channels(series, t, Bc, C_tot, b0 + bl, ch);
+      bits = (uint8_t)byp[(int64_t)(b0 + bl) * period + t];
+    }
+    __syncthreads();
+    if (live)
+      output_stage_sample(s_fr[bl], s_seed[i * CT + bl], n_mats, ch, bits,
+                          s_perm, C_out, nb, s_out + (bl * Ls + i) * row);
+    __syncthreads();
+    // chain c's run of ns samples starts at output byte gs; its words
+    const int run = ns * row, wpc = (run >> 2) + 2;
+    for (int w = tid; w < nct * wpc; w += blockDim.x) {
+      const int c = w / wpc;
+      const int64_t gs =
+          ((int64_t)(b0 + c) * period + (int64_t)f * L0 + i0) * row;
+      const int64_t a = ((gs >> 2) + (w - c * wpc)) << 2;
+      if (a < gs + run) store_word(out, a, gs, gs + run, s_out + c * Ls * row);
+    }
+    __syncthreads();
+  }
 }
 
 }  // namespace
@@ -56,12 +141,18 @@ extern "C" int dvda_output_stage(
     const int8_t* mat_quant, const int8_t* out_shift, const int8_t* wave_perm,
     uint8_t* out, int Bc, int fpc, int L0, int C_tot, int C_out, int n_mats,
     int nbytes, void* stream) {
-  const int n = Bc * fpc;
-  if (n <= 0) return 0;
-  const int blocks = (n + kThreads - 1) / kThreads;
-  output_stage_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      Bc, fpc, L0, C_tot, C_out, n_mats, nbytes, series, frame_seed,
-      frame_nshift, byp, mat_coeff, mat_noise, mat_out, mat_active, mat_quant,
-      out_shift, wave_perm, out);
+  if (Bc <= 0 || fpc <= 0 || L0 <= 0) return 0;
+  if (fpc > 65535 || C_out < 1 || C_out > 8 || n_mats < 0 || n_mats > 6)
+    return (int)cudaErrorInvalidValue;
+  const int Ls = L0 < kStrip ? L0 : kStrip;
+  int tile_log2 = 0;  // the most chains, up to 32, that fit the threads
+  while ((1 << (tile_log2 + 1)) <= kMaxTile &&
+         (Ls << (tile_log2 + 1)) <= kThreads)
+    ++tile_log2;
+  const dim3 blocks((Bc + (1 << tile_log2) - 1) >> tile_log2, fpc);
+  output_stage_kernel<<<blocks, Ls << tile_log2, 0, (cudaStream_t)stream>>>(
+      Bc, fpc, L0, tile_log2, Ls, C_tot, C_out, n_mats, nbytes, series,
+      frame_seed, frame_nshift, byp, mat_coeff, mat_noise, mat_out,
+      mat_active, mat_quant, out_shift, wave_perm, out);
   return (int)cudaGetLastError();
 }

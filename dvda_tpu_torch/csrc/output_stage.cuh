@@ -1,6 +1,9 @@
-// K234 frame body: the output half of the uniform chunk program for one
-// (chain, frame) pair -- LFSR noise, bypassed-LSB unpack, rematrix, output
-// shift, WAVE permutation and little-endian byte pack, in one pass.
+// K234 bodies: the output half of the uniform chunk program -- LFSR noise,
+// bypassed-LSB unpack, rematrix, output shift, WAVE permutation and
+// little-endian byte pack, in one pass.  Per (chain, frame)
+// output_stage_item / output_stage_set_item read the frame's tables; per
+// sample output_stage_channels reads its channels and output_stage_sample
+// writes its C_out output words, from the LFSR state stepped to the sample.
 //
 // Inputs are the chunk's arena arrays as they arrive (no widening copies):
 //   series      int32 [period, C_tot*Bc]  filter output, time-leading;
@@ -20,9 +23,9 @@
 //
 // Semantics are dvda_tpu.ops.rematrix.rematrix_frames_tl followed by
 // apply_output_stage_tl and the byte pack of the JAX chunk program.  The
-// LFSR is stepped serially over the frame's L0 samples (the JAX program
-// expands it by GF(2) jump doubling; both give the reference sequence).
-// Wrapping int32 adds and left shifts go through uint32.
+// LFSR is stepped serially from the frame seed (the JAX program expands it
+// by GF(2) jump doubling; both give the reference sequence).  Wrapping
+// int32 adds and left shifts go through uint32.
 #pragma once
 
 #include "dvda_hd.cuh"
@@ -62,7 +65,7 @@ DVDA_HD int32_t dvda_mask_quant(int32_t x, int q) {
 // The rematrix chain on one sample's 8 channels, in place: matrix m's int64
 // dot over the channels and the two noise values, ">> 14" cut to int32, the
 // quant mask, "+" the bypass addend byp[m], written into channel mo[m] when
-// active.  Shared by K234 (output_stage_frame), K6b (general_gather.cuh)
+// active.  Shared by K234 (output_stage_sample), K6b (general_gather.cuh)
 // and K9 (frame_remix.cuh).
 template <class Bypass>
 DVDA_HD void dvda_rematrix_sample(const DvdaFrameMats& mats, int n_mats,
@@ -98,69 +101,80 @@ DVDA_HD uint32_t dvda_output_pick(const int32_t ch[8], const int osh[8],
   return dvda_shl((uint32_t)src, (uint32_t)sh);
 }
 
-DVDA_HD void output_stage_frame(
-    int idx, int Bc, int fpc, int L0, int C_tot, int C_out, int n_mats,
-    int nbytes, const int32_t* __restrict__ series,
-    const int32_t* __restrict__ frame_seed,
-    const int8_t* __restrict__ frame_nshift, const int8_t* __restrict__ byp,
+// One frame's tables for K234: the matrix rows, the output shifts and the
+// noise shift.
+struct DvdaOutFrame {
+  DvdaFrameMats mats;
+  int osh[8];
+  int nshift;
+};
+
+// A frame's tables as kOutFrameItems items: 48 coefficients, 12 noise
+// coefficients, 6 output channels, 6 quant steps, 6 active flags, 8 output
+// shifts, the noise shift.  output_stage_item reads item e of frame fr
+// (chain-major index b*fpc + f); output_stage_set_item puts it in place.
+// The kernel gives each thread its own items and has all their loads in
+// flight before the first store.
+constexpr int kOutFrameItems = 87;
+
+DVDA_HD int32_t output_stage_item(
+    int64_t fr, int e, const int8_t* __restrict__ frame_nshift,
     const int16_t* __restrict__ mat_coeff,
     const int16_t* __restrict__ mat_noise, const int8_t* __restrict__ mat_out,
     const int8_t* __restrict__ mat_active,
     const int8_t* __restrict__ mat_quant,
-    const int8_t* __restrict__ out_shift,
-    const int8_t* __restrict__ wave_perm, uint8_t* __restrict__ out) {
-  const int b = idx % Bc;
-  const int f = idx / Bc;
-  const int64_t fr = (int64_t)b * fpc + f;
-  const int64_t period = (int64_t)fpc * L0;
-  const int64_t row_stride = (int64_t)C_tot * Bc;
+    const int8_t* __restrict__ out_shift) {
+  if (e < 48) return mat_coeff[fr * 48 + e];
+  if (e < 60) return mat_noise[fr * 12 + (e - 48)];
+  if (e < 66) return mat_out[fr * 6 + (e - 60)];
+  if (e < 72) return mat_quant[fr * 6 + (e - 66)];
+  if (e < 78) return mat_active[fr * 6 + (e - 72)];
+  if (e < 86) return out_shift[fr * 8 + (e - 78)];
+  return frame_nshift[fr];
+}
 
-  // the frame's matrix rows, in registers for all L0 samples
-  DvdaFrameMats mats;
+DVDA_HD void output_stage_set_item(DvdaOutFrame& o, int e, int32_t v) {
+  if (e < 48)
+    o.mats.co[e >> 3][e & 7] = v;
+  else if (e < 60)
+    o.mats.cn[(e - 48) >> 1][e & 1] = v;
+  else if (e < 66)
+    o.mats.mo[e - 60] = v;
+  else if (e < 72)
+    o.mats.mq[e - 66] = v;
+  else if (e < 78)
+    o.mats.act[e - 72] = v != 0;
+  else if (e < 86)
+    o.osh[e - 78] = v;
+  else
+    o.nshift = v;
+}
+
+// Chain b's 8 channels at in-chain time t (0 past C_tot).
+DVDA_HD void output_stage_channels(const int32_t* __restrict__ series,
+                                   int64_t t, int Bc, int C_tot, int b,
+                                   int32_t ch[8]) {
+  const int32_t* row = series + t * C_tot * Bc + b;
 #pragma unroll
-  for (int m = 0; m < 6; ++m) {
-#pragma unroll
-    for (int c = 0; c < 8; ++c)
-      mats.co[m][c] = mat_coeff[(fr * 6 + m) * 8 + c];
-    mats.cn[m][0] = mat_noise[(fr * 6 + m) * 2];
-    mats.cn[m][1] = mat_noise[(fr * 6 + m) * 2 + 1];
-    mats.mo[m] = mat_out[fr * 6 + m];
-    mats.mq[m] = mat_quant[fr * 6 + m];
-    mats.act[m] = mat_active[fr * 6 + m] != 0;
-  }
-  int osh[8];
-#pragma unroll
-  for (int c = 0; c < 8; ++c) osh[c] = out_shift[fr * 8 + c];
-  uint32_t seed = (uint32_t)frame_seed[fr];
-  const int nshift = frame_nshift[fr];
+  for (int c = 0; c < 8; ++c) ch[c] = c < C_tot ? row[(int64_t)c * Bc] : 0;
+}
 
-  for (int i = 0; i < L0; ++i) {
-    const int64_t t = (int64_t)f * L0 + i;
-    int32_t ch[8];
-#pragma unroll
-    for (int c = 0; c < 8; ++c)
-      ch[c] = c < C_tot ? series[t * row_stride + (int64_t)c * Bc + b] : 0;
-
-    // noise0 = int8(seed >> 15) << nshift, noise1 = int8(seed >> 7) << ...
-    const int32_t n0 =
-        (int32_t)((uint32_t)(int32_t)(int8_t)(uint8_t)(seed >> 15) << nshift);
-    const int32_t n1 =
-        (int32_t)((uint32_t)(int32_t)(int8_t)(uint8_t)(seed >> 7) << nshift);
-    seed = dvda_lfsr_step(seed);
-    const uint32_t bits = (uint8_t)byp[(int64_t)b * period + t];
-
-    dvda_rematrix_sample(mats, n_mats, ch, n0, n1, DvdaBypassBits{bits});
-
-    uint8_t* dst = out + ((int64_t)b * period + t) *
-                             (int64_t)C_out * (nbytes ? nbytes : 4);
-    for (int k = 0; k < C_out; ++k) {
-      const uint32_t v = dvda_output_pick(ch, osh, wave_perm[k]);
-      if (nbytes == 0) {
-        reinterpret_cast<int32_t*>(dst)[k] = (int32_t)v;
-      } else {
-        for (int j = 0; j < nbytes; ++j)
-          dst[k * nbytes + j] = (uint8_t)(v >> (8 * j));
-      }
-    }
+// One sample of frame fr: noise from the LFSR state ``seed`` it starts
+// at, the first n_mats matrix slots (fr's tables are read where they lie,
+// so n_mats can be a runtime count without a stack copy), the output shift
+// and the WAVE permutation; C_out little-endian words of nb bytes at dst.
+DVDA_HD void output_stage_sample(const DvdaOutFrame& fr, uint32_t seed,
+                                 int n_mats, int32_t ch[8], uint32_t bits,
+                                 const int8_t* wave_perm, int C_out, int nb,
+                                 uint8_t* dst) {
+  // noise0 = int8(seed >> 15) << nshift, noise1 = int8(seed >> 7) << ...
+  const int32_t n0 = (int32_t)((uint32_t)(int32_t)(int8_t)(uint8_t)(
+                                   seed >> 15) << fr.nshift);
+  const int32_t n1 = (int32_t)((uint32_t)(int32_t)(int8_t)(uint8_t)(
+                                   seed >> 7) << fr.nshift);
+  dvda_rematrix_sample(fr.mats, n_mats, ch, n0, n1, DvdaBypassBits{bits});
+  for (int k = 0; k < C_out; ++k) {
+    const uint32_t v = dvda_output_pick(ch, fr.osh, wave_perm[k]);
+    for (int j = 0; j < nb; ++j) dst[k * nb + j] = (uint8_t)(v >> (8 * j));
   }
 }

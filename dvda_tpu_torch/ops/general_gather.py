@@ -157,6 +157,11 @@ def _launch_pack(u):
     for k in ("shift", "quant"):
         check(u[k], k, i32, (nbt, n_ch), dev)
     check(u["iir_reset"], "iir_reset", torch.bool, (nbt, n_ch), dev)
+    if not 1 <= n_ch <= 8:
+        raise ValueError(f"{n_ch} channels: the kernel takes 1..8")
+    for k in ("rc_fir", "rc_iir", "iir_init"):  # read as 16-byte vectors
+        if u[k].data_ptr() % 16:
+            raise ValueError(f"{k}: not 16-byte aligned")
     outs = (torch.empty((NB, S, B), dtype=i32, device=dev),
             torch.empty((B, NB, 8), dtype=i32, device=dev),
             torch.empty((B, NB, 8), dtype=i32, device=dev),

@@ -185,6 +185,32 @@ def output_stage_inputs(seed: int, chains: int, fpc: int, L0: int,
         wave_perm=rng.permutation(max(C_tot, C_out))[:C_out].astype(np.int8))
 
 
+#: K234 edge shapes (chains, fpc, L0, C_tot, C_out, n_mats, nbytes,
+#: extreme) for :func:`output_stage_inputs`: chain counts off the kernel's
+#: tile, the frame lengths of 48/96/192 kHz (L0 40, 80, 160) and one past
+#: a 160-sample strip, C_out below C_tot, 0-6 matrix slots, every output
+#: form, the int32 extremes
+OUTPUT_STAGE_EDGES = (
+    (33, 2, 40, 8, 6, 6, 3, True),
+    (33, 2, 80, 6, 2, 3, 2, False),
+    (33, 1, 160, 4, 3, 0, 0, True),
+    (5, 3, 160, 2, 1, 1, 3, False),
+    (7, 2, 80, 7, 5, 4, 0, True),
+    (33, 2, 40, 3, 2, 2, 2, True),
+    (3, 1, 200, 8, 7, 5, 3, False),
+)
+
+#: K6a edge shapes (n_ch, S, n_blocks, extreme) for :func:`general_inputs`
+#: (one substream, seed 0): every substream width, blocks of 1..S samples
+#: (S of 20, 40, and 100, past a 64-row strip), chain counts off the
+#: kernel's 128-lane tile, chain positions masked off
+LANE_PACK_EDGES = (
+    (1, 20, 1000, False), (2, 40, 900, True), (3, 40, 600, False),
+    (4, 20, 600, False), (5, 40, 400, True), (6, 20, 400, False),
+    (6, 100, 300, True),
+)
+
+
 def frame_remix_inputs(seed: int, F: int, L: int, C: int, C_out: int,
                        extreme: bool = False, edges: bool = False) -> list:
     """Positional arguments of ``frame_remix`` (all but ``n_mats``) as

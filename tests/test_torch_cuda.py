@@ -37,8 +37,10 @@ from dvda_tpu_torch.ops.rematrix import (apply_output_stage_reference,
 from dvda_tpu_torch.parallel.mesh import make_mesh
 from dvda_tpu_torch.parallel.step import (decode_step, example_batch,
                                           make_sharded_step)
-from dvda_tpu_torch.testutil import (BPS_CODE, RATE_CODE, MlpSynthConfig,
-                                     MlpTrackSpec, PcmTrackSpec, build_disc,
+from dvda_tpu_torch.testutil import (BPS_CODE, LANE_PACK_EDGES,
+                                     OUTPUT_STAGE_EDGES, RATE_CODE,
+                                     MlpSynthConfig, MlpTrackSpec,
+                                     PcmTrackSpec, build_disc,
                                      cppm_sector_mix, encrypt_sectors_batch,
                                      filter_inputs, frame_remix_inputs,
                                      general_inputs, huffman_inputs,
@@ -79,6 +81,22 @@ def test_output_stage_kernel_matches_plain(dev, nbytes, extreme):
     assert output_stage.launches == before + 1
     ref = output_stage_reference(*args, chains=16, n_mats=6, nbytes=nbytes)
     assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("shape", OUTPUT_STAGE_EDGES,
+                         ids=lambda s: "-".join(map(str, s)))
+def test_output_stage_kernel_edge_shapes(dev, shape):
+    """K234's tiles and strips: ragged chain counts, L0 of 40-200, C_out <
+    C_tot, 0-6 slots, every output form (the staged word stores)."""
+    Bc, fpc, L0, C_tot, C_out, n_mats, nbytes, extreme = shape
+    inp = output_stage_inputs(L0 + n_mats, Bc, fpc, L0, C_tot, C_out,
+                              extreme=extreme)
+    args = [torch.from_numpy(v).to(dev) for v in inp.values()]
+    kw = dict(chains=Bc, n_mats=n_mats, nbytes=nbytes)
+    before = output_stage.launches
+    got = output_stage(*args, **kw)
+    assert output_stage.launches == before + 1
+    assert torch.equal(got, output_stage_reference(*args, **kw))
 
 
 def test_kernel_rejects_bad_arguments(dev):
@@ -124,7 +142,22 @@ def test_lane_pack_kernel_matches_plain(dev, extreme):
             assert torch.equal(g, r)
 
 
-@pytest.mark.parametrize("extreme,n_ch", [(False, (2, 4)), (True, (2, 4)),
+@pytest.mark.parametrize("shape", LANE_PACK_EDGES,
+                         ids=lambda s: "-".join(map(str, s)))
+def test_lane_pack_kernel_edge_shapes(dev, shape):
+    """K6a's tiles: each substream width, a ragged last tile, blocks
+    shorter than S (and S past a 64-row strip), masked positions."""
+    n_ch, S, n_blocks, extreme = shape
+    subs, _ = _general_tables(dev, seed=0, n_blocks=n_blocks, S=S,
+                              n_ch=(n_ch,), extreme=extreme)
+    before = lane_pack.launches
+    got = lane_pack(subs[0])
+    assert lane_pack.launches == before + 1
+    for g, r in zip(got, lane_pack_reference(subs[0]), strict=True):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("extreme,n_ch",[(False, (2, 4)), (True, (2, 4)),
                                           (False, (6,))])
 def test_series_remix_kernel_matches_plain(dev, extreme, n_ch):
     subs, frames = _general_tables(dev, seed=3, n_blocks=300, S=40, F=40,

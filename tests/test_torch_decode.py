@@ -146,6 +146,44 @@ def test_reader_matches_reference_oracle(tmp_path, ref_oracle):
         assert hdr + data == golden[f"track-01-{n:02d}.wav"], f"track {n}"
 
 
+@pytest.fixture(scope="module")
+def range_discs(tmp_path_factory):
+    from test_torch_pcm import _pcm_disc
+
+    return {"mlp": _disc(tmp_path_factory.mktemp("mlp")).path,
+            "pcm16": _pcm_disc(tmp_path_factory.mktemp("pcm"), 16).path}
+
+
+_RANGE_STATES = {"fresh": lambda r: None, "read4": lambda r: r.read(4),
+                 "seek10": lambda r: r.seek(10),
+                 "read_all": lambda r: r.read_all()}
+
+
+@pytest.mark.parametrize("start,n", [(-10, 3), (-3, 5), (-10, 30), (7, 9),
+                                     (5, -2), ("len-5", 100)])
+@pytest.mark.parametrize("state", sorted(_RANGE_STATES))
+@pytest.mark.parametrize("disc", ["mlp", "pcm16"])
+def test_read_range_matches_jax(range_discs, disc, state, start, n):
+    """``read_range`` gives dvda_tpu's frames on a fresh reader and after
+    ``read``, ``seek`` and ``read_all``: clamped to the track where
+    dvda_tpu's MLP segment reader serves it, the Python slice (a negative
+    start counting from the end) everywhere else."""
+    path = range_discs[disc]
+    jax_reader = DVDA(path).open_titleset(1).open_title(1).open_track(1) \
+        .open_reader(config=JaxConfig(host_complete=True))
+    reader = _reader(path, 1, DecodeConfig(device="cpu"))
+    total = reader.total_pcm_frames
+    assert total == jax_reader.total_pcm_frames > 100
+    if start == "len-5":
+        start = total - 5
+    for r in (jax_reader, reader):
+        _RANGE_STATES[state](r)
+    got = reader.read_range(start, n)
+    want = jax_reader.read_range(start, n)
+    assert got.dtype == want.dtype and np.array_equal(got, want)
+    assert reader.tell() == jax_reader.tell()
+
+
 def test_drain_grows_and_zero_fills():
     """The output buffer grows when pushes outrun its estimate, keeps the
     rows already drained, and zero-fills rows that were never pushed."""

@@ -31,7 +31,8 @@ from dvda_tpu_torch.ops.pcm_unpack import decode_chunks_reference
 from dvda_tpu_torch.ops.rematrix import (apply_output_stage_reference,
                                          output_stage_reference,
                                          rematrix_frames_reference)
-from dvda_tpu_torch.testutil import (MlpSynthConfig, MlpTrackSpec,
+from dvda_tpu_torch.testutil import (LANE_PACK_EDGES, OUTPUT_STAGE_EDGES,
+                                     MlpSynthConfig, MlpTrackSpec,
                                      PcmTrackSpec, build_disc,
                                      cppm_sector_mix, filter_inputs,
                                      frame_remix_inputs,
@@ -119,6 +120,23 @@ def test_output_stage_body_matches_plain(harness, nbytes, extreme):
     if nbytes == 0:
         out = out.view(np.int32)
     assert np.array_equal(out, ref)
+
+
+@pytest.mark.parametrize("shape", OUTPUT_STAGE_EDGES,
+                         ids=lambda s: "-".join(map(str, s)))
+def test_output_stage_body_edge_shapes(harness, shape):
+    """K234's body at the edge shapes: ragged chain counts, L0 of 40, 80,
+    160 and 200, C_out < C_tot, 0-6 slots, every output form."""
+    Bc, fpc, L0, C_tot, C_out, n_mats, nbytes, extreme = shape
+    inp = output_stage_inputs(L0 + n_mats, Bc, fpc, L0, C_tot, C_out,
+                              extreme=extreme)
+    out = np.zeros((Bc * fpc * L0, C_out * (nbytes or 4)), np.uint8)
+    harness.cpu_output_stage(*[_ptr(a) for a in inp.values()], _ptr(out),
+                             Bc, fpc, L0, C_tot, C_out, n_mats, nbytes)
+    ref = output_stage_reference(
+        *map(torch.from_numpy, inp.values()), chains=Bc, n_mats=n_mats,
+        nbytes=nbytes).numpy()
+    assert np.array_equal(out.view(np.int32) if nbytes == 0 else out, ref)
 
 
 def _frame_remix_check(harness, args, n_mats):
@@ -315,6 +333,23 @@ def test_lane_pack_body_matches_plain(harness, extreme):
         for g, r in zip(got, ref):
             assert np.array_equal(g, r.numpy())
         assert not got[7].all()  # some positions lie past their chain
+
+
+@pytest.mark.parametrize("shape", LANE_PACK_EDGES,
+                         ids=lambda s: "-".join(map(str, s)))
+def test_lane_pack_body_edge_shapes(harness, shape):
+    """K6a at the edge shapes: each substream width 1-6, chain counts off
+    the 128-lane tile, blocks shorter than S, masked chain positions."""
+    n_ch, S, n_blocks, extreme = shape
+    subs, frames = general_inputs(0, n_blocks=n_blocks, S=S, n_ch=(n_ch,),
+                                  extreme=extreme)
+    Bc = subs[0]["bidx"].shape[0]
+    assert Bc % (128 // n_ch) and subs[0]["S"] == S
+    got = _lane_pack_body(harness, subs[0])
+    for g, r in zip(got, lane_pack_reference(
+            _torch_tables(subs, frames)[0][0]), strict=True):
+        assert np.array_equal(g, r.numpy())
+    assert not got[7].all() and (got[0] == 0).any()
 
 
 @pytest.mark.parametrize("extreme,n_ch", [(False, (2, 4)), (True, (2, 4)),
