@@ -8,21 +8,25 @@ Phases, each printing a line; any failure propagates (non-zero exit):
 1. device: the card's name and power limit (fails without CUDA);
 2. build: the CUDA kernels from dvda_tpu_torch/csrc with nvcc (sm_90a),
    one nvcc per source, all started together; ptxas's registers, shared
-   memory and stack per kernel (a stack frame in K234 or K6a fails);
+   memory and stack per kernel (a stack frame in K1, K234, K5 or K6a
+   fails);
 3. synthesis: a 30-second 5.1/96k/24 MLP disc, and a three-track
    CPPM-encrypted disc — that MLP stream, 30 s of PCM 5.1/96k/24 and 30 s
    of PCM 2.0/48k/16 — with a plaintext copy;
 4. kernels: each kernel against its plain PyTorch version on the card,
    bit-exact (tolerance 0: the decode is integer arithmetic), at the shapes
-   the main paths give it (K234 also at the edge shapes of
-   ``testutil.OUTPUT_STAGE_EDGES``) — K5's inputs come from the
+   the main paths give it (K1, K234 and K5 also at the edge shapes of
+   ``testutil.FILTER_EDGES``, ``OUTPUT_STAGE_EDGES`` and
+   ``HUFFMAN_EDGES``) — K5's inputs come from the
    skip-values parse of the disc's first chunk, K8's from the PCM track's
    chunks, K7's from the encrypted disc's first AOB batch.  A kernel's
    time is its time on the card: CUDA events around calls the host has
    all queued while the card waits in a spin kernel.  Beside it is the
    CUDA-event time of calls made back to back, which also holds the
    wrapper's host time where that is longer; the plain versions' times
-   are of the latter kind;
+   are of the latter kind.  K1 and K5, bound by their serial chains, also
+   print their card time per dependent step (per sample of a lane, per
+   symbol of a sub-lane) and K5 its staged stream windows;
 5. MLP path, in both modes: the MLP disc decoded through
    ``open_disc(...)...read_all_packed()`` on the card in standard mode and
    in device-Huffman mode, each byte-compared with the port's C++
@@ -39,7 +43,8 @@ Phases, each printing a line; any failure propagates (non-zero exit):
 7. general path: a 30-second 5.1/96k/24 MLP disc of 12 sections that
    alternate 2 x 40 and 4 x 20 samples per frame, which the pipelined
    driver abandons: K6a and K6b against their plain versions at its
-   shapes (K6a also at ``testutil.LANE_PACK_EDGES``), then the disc
+   shapes (K6a also at ``testutil.LANE_PACK_EDGES``; K1 timed at its
+   widest substream), then the disc
    through ``open_disc(...).read_all_packed()``,
    which must take the general path (K6a, K1, K6b launched) and equal the
    host-complete bytes; walls against host-complete;
@@ -47,7 +52,8 @@ Phases, each printing a line; any failure propagates (non-zero exit):
    ``example_batch(F=256, C=8, NB=16, S=40)`` on the card (one K1 and one
    K9 launch), bit-exact against the same step built from the plain
    versions on the card; ``make_sharded_step`` over ``make_mesh()`` (every
-   visible card) equal to it; the step's CUDA-event time;
+   visible card) equal to it; the step's CUDA-event time and K1's card
+   time at the step's lanes;
 9. Python engine: a 5-second 5.1/96k/24 disc (6,000 frames: the pure-Python
    planner costs seconds of host time per second of audio) through
    ``open_disc(...).read_all_packed()`` with ``use_native=False``: the
@@ -68,8 +74,10 @@ time and ``bound_by`` leans to bytes), computed from this run's inputs,
 and ``library_ms``: the time of the one PyTorch call
 that computes the same function where there is one (K8's packed form:
 ``index_select`` by the gather table; K6a's residual gather:
-``torch.take``), timed here only.  The last two lines are the kernels'
-JSON record and ``{"ok": true, "device": {...}}``.
+``torch.take``), timed here only.  K1's ``launches`` sums its launches
+over every MLP path's run (standard, device Huffman, the CPPM track,
+churn, step, engine).  The last two lines are the kernels' JSON record and
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -95,7 +103,7 @@ CHUNK, NB0, S0, L0 = 256, 16, 40, 80
 KERNELS = ("mlp_filter", "output_stage", "huffman_decode", "pcm_unpack",
            "c2_decrypt", "lane_pack", "series_remix", "frame_remix")
 #: kernels whose build fails if ptxas gives them a stack frame
-NO_STACK = ("output_stage", "lane_pack")
+NO_STACK = ("output_stage", "lane_pack", "mlp_filter", "huffman_decode")
 #: the fused decode step's batch: __graft_entry__'s production shape
 STEP = dict(F=256, C=8, NB=16, S=40, C_out=6, seed=0)
 #: the Python-engine disc (5 s) and the bail disc (1 s), headline format
@@ -117,6 +125,8 @@ PCM_TRACKS = (dict(pcm_frames=2_880_000, sample_rate=96000,
               dict(pcm_frames=1_440_000, sample_rate=48000,
                    bits_per_sample=16, channel_assignment=1, seed=1))
 MEDIA_KEY, ALBUM = 0x00DEADBEEF001122, 0x0F0E0D0C0B0A0908
+#: K1 launches of each main path's run (K1 is the filter of every MLP path)
+K1_PATHS: dict[str, int] = {}
 
 
 def _require(cond: bool, what: str) -> None:
@@ -152,9 +162,11 @@ def phase_build():
             kernel = named[0]
         elif "Used" in line or "spill" in line:
             print(f"[build] {kernel}: {line.split(':', 1)[-1].strip()}")
-            if "stack frame" in line:
-                stack[kernel] = int(line.split()[0])
-    # the tiled designs keep their tables in shared memory, not on a stack
+            if "stack frame" in line:  # every instantiation of a template
+                stack[kernel] = max(stack.get(kernel, 0),
+                                    int(line.split()[0]))
+    # the tiled designs keep their tables in shared memory or registers,
+    # not on a stack
     for k in NO_STACK:
         _require(stack.get(k) == 0, f"ptxas: {k} has a stack frame of "
                                     f"{stack.get(k)} bytes")
@@ -338,14 +350,15 @@ def phase_kernels(stream, plain, enc_path):
                                                mlp_filter_blocks_tl_reference)
     from dvda_tpu_torch.ops.rematrix import (output_stage,
                                              output_stage_reference)
-    from dvda_tpu_torch.testutil import (OUTPUT_STAGE_EDGES, filter_inputs,
-                                         output_stage_inputs)
+    from dvda_tpu_torch.testutil import (FILTER_EDGES, OUTPUT_STAGE_EDGES,
+                                         filter_inputs, output_stage_inputs)
 
     dev = torch.device("cuda", 0)
     results = {}
 
     # K1 at the headline chunk (256 chains x 6 channels, 16 blocks x 40)
-    # and at the extreme-value pattern
+    # and at the extreme-value pattern, then at the edge shapes of its
+    # 32-lane blocks and 32-row tiles
     k1_err = 0
     for label, (B, NB, S), extreme, seed in (
             ("headline", (1536, 16, 40), False, 0),
@@ -367,9 +380,20 @@ def phase_kernels(stream, plain, enc_path):
             # per live sample: 8 FIR + 8 IIR int64 multiply-adds, the
             # shift, the quant mask and the residual add
             k1_cost = (_nbytes(*args, *got), 36 * int(args[7].sum()))
+    for B, NB, S, extreme, states in FILTER_EDGES:
+        args = [torch.from_numpy(np.asarray(x)).to(dev) for x in
+                filter_inputs(B + S, B, NB, S, extreme, states)]
+        err = max(_max_err(g, r) for g, r in zip(
+            mlp_filter_blocks_tl(*args),
+            mlp_filter_blocks_tl_reference(*args)))
+        _require(err == 0, f"K1 B={B} NB={NB} S={S}: max |kernel - plain| "
+                           f"= {err}")
+    print("[kernels] K1 edge shapes (B x NB x S): " + "; ".join(
+        f"{e[0]}x{e[1]}x{e[2]}{' extreme' if e[3] else ''}"
+        for e in FILTER_EDGES) + ": bit-exact")
     print(f"[kernels] K1 headline: kernel {ms:.4f} ms on the card "
-          f"({ev:.4f} ms per call back to back), plain {plain_ms:.2f} ms "
-          "per call")
+          f"({ev:.4f} ms per call back to back; {ms * 1e6 / (16 * 40):.1f} "
+          f"ns per dependent step of 640), plain {plain_ms:.2f} ms per call")
     results["mlp_filter"] = _record(k1_err, ms, plain_ms, *k1_cost)
 
     # K234 at the headline chunk: 256 chains x 8 frames x L0=80, 6 channels,
@@ -423,7 +447,8 @@ def phase_kernels(stream, plain, enc_path):
     # with the burst slot map; then the 39-bit symbols at every alignment
     from dvda_tpu_torch.ops.huffman_decode import (decode_residuals_device,
                                                    decode_residuals_reference)
-    from dvda_tpu_torch.testutil import huffman_worst_case
+    from dvda_tpu_torch.testutil import (HUFFMAN_EDGES, huffman_edge_inputs,
+                                         huffman_worst_case)
 
     calls = _huffman_headline(stream, dev)
     k5_err = 0
@@ -438,21 +463,42 @@ def phase_kernels(stream, plain, enc_path):
         print(f"[kernels] K5 huffman_decode substream {i}: L={args[2].shape[0]}"
               f" C={args[2].shape[1]} S0={args[7]} J={args[8]} "
               f"k={args[9]}{' + slot map' if 'bypk' in kw else ''}: "
-              f"bit-exact")
+              "bit-exact")
     for align in range(32):
         case = huffman_worst_case(align)
         args = [torch.from_numpy(np.asarray(case[n])).to(dev) for n in (
             "bitpos", "codebook", "lsb_bits", "offset", "quant", "nbyp")]
         words = torch.from_numpy(case["words"].view(np.int32)).to(dev)
         tail = (case["S0"], case["J"], case["k"])
-        got = decode_residuals_device(words, *args, *tail)
-        ref = decode_residuals_reference(words, *args, *tail)
-        torch.cuda.synchronize()
-        err = max(_max_err(g, r) for g, r in zip(got, ref))
-        _require(err == 0, f"K5 39-bit case align {align}: error {err}")
-        k5_err = max(k5_err, err)
+        for NB0 in (0, 3):  # three lanes, or one chain of three blocks
+            got = decode_residuals_device(words, *args, *tail, NB0=NB0)
+            ref = decode_residuals_reference(words, *args, *tail, NB0=NB0)
+            torch.cuda.synchronize()
+            err = max(_max_err(g, r) for g, r in zip(got, ref))
+            _require(err == 0, f"K5 39-bit case align {align} NB0={NB0}: "
+                               f"error {err}")
+            k5_err = max(k5_err, err)
     print("[kernels] K5 39-bit symbols (6 burst + 9 code + 24 LSB bits), "
-          "all 32 start alignments: bit-exact")
+          "all 32 start alignments, NB0 0 and 3: bit-exact")
+    for edge in HUFFMAN_EDGES:
+        case = huffman_edge_inputs(edge)
+        args = [torch.from_numpy(case["words"].view(np.int32)).to(dev)] + [
+            torch.from_numpy(np.asarray(case[n])).to(dev) for n in (
+                "bitpos", "codebook", "lsb_bits", "offset", "quant",
+                "nbyp")] + [case["S0"], case["J"], case["k"]]
+        kw = dict(NB0=case["NB0"], word_base=torch.tensor(
+            [case["word_base"]], dtype=torch.int32, device=dev))
+        if case["slots"]:
+            kw.update(bypk=torch.from_numpy(case["bypk"]).to(dev),
+                      bypv=torch.from_numpy(case["bypv"]).to(dev))
+        err = max(_max_err(g, r) for g, r in zip(
+            decode_residuals_device(*args, **kw),
+            decode_residuals_reference(*args, **kw)))
+        _require(err == 0, f"K5 edge case {edge[0]}: max |kernel - plain| = "
+                           f"{err}")
+        k5_err = max(k5_err, err)
+    print(f"[kernels] K5 edge cases ({', '.join(e[0] for e in HUFFMAN_EDGES)}"
+          "): bit-exact")
 
     def k5_chunk():  # the chunk's two launches
         for args, kw in calls:
@@ -464,13 +510,19 @@ def phase_kernels(stream, plain, enc_path):
 
     ms, ev = _times(k5_chunk, 50)
     plain_ms = _cuda_ms(k5_plain, 3)
+    # the serial symbols of the chunk: k samples x C slots a sub-lane, the
+    # two launches one after the other
+    serial = sum(args[9] * args[2].shape[1] for args, _ in calls)
+    stream_bytes = len(stream) * 8 * CHUNK // HEADLINE["n_frames"]
     print(f"[kernels] K5 headline chunk (2 launches): kernel {ms:.4f} ms on "
-          f"the card ({ev:.4f} ms per chunk back to back), plain "
-          f"{plain_ms:.2f} ms per chunk")
+          f"the card ({ev:.4f} ms per chunk back to back; "
+          f"{ms * 1e6 / serial:.1f} ns per dependent symbol of {serial}), "
+          f"plain {plain_ms:.2f} ms per chunk; {stream_bytes / 1e6:.3f} MB "
+          f"of stream a chunk ({stream_bytes / CHUNK:.0f} B a chain)")
     # of the stream words the chunk reads its own frames' share (8 of the
     # disc's frames per chain); per decoded residual about 24 integer
     # operations (peek, table lookup, LSB extract, sign, offset, quant)
-    nbytes = len(stream) * 8 * CHUNK // HEADLINE["n_frames"] + sum(
+    nbytes = stream_bytes + sum(
         _nbytes(*args[1:], *kw.values(), *decode_residuals_device(*args, **kw))
         for args, kw in calls)
     n_res = sum(decode_residuals_device(*args, **kw)[0].numel()
@@ -772,6 +824,8 @@ def phase_main(layout, cfg, smi: str):
         print(f"[main]   {who}: {best:.4f} s = {SECONDS / best:.1f}x "
               f"realtime (runs {', '.join(f'{x:.4f}' for x in times[who])})"
               f"{extra}; stages {timers}")
+    for mode in modes:
+        K1_PATHS[mode] = launches[mode]["mlp_filter"]
     return {"mlp_filter": launches["standard"]["mlp_filter"],
             "output_stage": launches["standard"]["output_stage"],
             "huffman_decode": launches["device_huffman"]["huffman_decode"]}
@@ -873,6 +927,7 @@ def phase_cppm(plain, enc_path: str, n_sectors: int, smi: str):
                            "wavs")
     written = disc_to_wavs(plain.path, wav_dir, config=conf)
     launches = {k: fn.launches for k, fn in counters.items()}
+    K1_PATHS["cppm"] = launches["mlp_filter"]
     _require(launches["c2_decrypt"] >= 10 and launches["pcm_unpack"] >= 2
              and launches["mlp_filter"] >= 18
              and launches["output_stage"] >= 18,
@@ -1082,6 +1137,15 @@ def _kernels_k6(subs, tabs, F: int, hc32, smi: str):
     print(f"[general] {smi}; K6b: kernel {k6b_ms:.4f} ms on the card "
           f"({k6b_ev:.4f} ms per call back to back), plain "
           f"{k6b_plain_ms:.2f} ms per call")
+    # K1 at the churn disc's widest substream (K6a's outputs as its inputs)
+    p = max(packed, key=lambda p: p[0].shape[2])
+    NB, S, B = p[0].shape
+    k1_ms, k1_ev = _times(lambda: mlp_filter_blocks_tl(*p[:8], p[8], p[8]),
+                          20)
+    print(f"[general] {smi}; K1 at the churn substream [NB, S, B] = "
+          f"{NB, S, B}: kernel {k1_ms:.4f} ms on the card ({k1_ev:.4f} ms "
+          f"per call back to back; {k1_ms * 1e6 / (NB * S):.1f} ns per "
+          f"dependent step of {NB * S})")
     return {"lane_pack": k6a_rec, "series_remix": k6b_rec}
 
 
@@ -1147,6 +1211,7 @@ def phase_general(layout, frames: int, smi: str):
         fn.launches = 0
     got = port()
     launches = {k: fn.launches for k, fn in counters.items()}
+    K1_PATHS["churn"] = launches["mlp_filter"]
     _require(launches["lane_pack"] == 2 and launches["series_remix"] == 1
              and launches["mlp_filter"] >= 2,
              f"the general disc did not run its kernels: {launches}")
@@ -1246,6 +1311,7 @@ def phase_step(smi: str):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     launches = {k: fn.launches for k, fn in counters.items()}
+    K1_PATHS["step"] = launches["mlp_filter"]
     _require(launches == {"mlp_filter": 1, "frame_remix": 1},
              f"decode_step did not run K1 and K9 once each: {launches}")
     F, L = STEP["F"], STEP["NB"] * STEP["S"]
@@ -1258,6 +1324,22 @@ def phase_step(smi: str):
     torch.cuda.synchronize()
     _require(torch.equal(sharded, got),
              "make_sharded_step differs from decode_step")
+    # K1 alone at the step's lanes (the flat inputs decode_step builds)
+    F, C, NB, S = b.residuals.shape
+
+    def flat(x):
+        return x.reshape((F * C,) + tuple(x.shape[2:]))
+
+    zeros = b.residuals.new_zeros((F * C, 8))
+    k1_args = (flat(b.residuals).permute(1, 2, 0).contiguous(),
+               *(flat(getattr(b, k)).contiguous() for k in (
+                   "rc_fir", "rc_iir", "shift", "quant", "iir_reset",
+                   "iir_init", "block_len")), zeros, zeros)
+    k1_ms, k1_ev = _times(lambda: mlp_filter_blocks_tl(*k1_args), 20)
+    print(f"[step] {smi}; K1 at the step's [NB, S, B] = {NB, S, F * C}: "
+          f"kernel {k1_ms:.4f} ms on the card ({k1_ev:.4f} ms per call back "
+          f"to back; {k1_ms * 1e6 / (NB * S):.1f} ns per dependent step of "
+          f"{NB * S})")
     for _ in range(3):
         decode_step(b)
     t = time.perf_counter()
@@ -1355,6 +1437,7 @@ def phase_engine(layout, smi: str):
         engine.mlp_filter_blocks = mlp_filter_blocks
     _require(reader.decode_info.get("path") == "engine",
              f"the engine disc took the {reader.decode_info} path")
+    K1_PATHS["engine"] = launches["mlp_filter"]
     _require(launches["mlp_filter"] >= 1 and launches["frame_remix"] >= 1,
              f"the engine disc did not run K1 and K9: {launches}")
     stream, bnd, probe_end = assemble_track_stream(reader.aob,
@@ -1468,6 +1551,10 @@ def main() -> int:
         engine_launches, _ = phase_engine(
             phase_synth_engine(work, ENGINE_FRAMES, "engine"), smi)
         launches["frame_remix"] = engine_launches["frame_remix"]
+        # K1's launches: every MLP path's run (the filter of each)
+        launches["mlp_filter"] = sum(K1_PATHS.values())
+        print(f"[launches] K1 per path {K1_PATHS}: "
+              f"{launches['mlp_filter']} in all")
         phase_bail(phase_synth_engine(work, BAIL_FRAMES, "bail",
                                       checkdata=False))
     finally:

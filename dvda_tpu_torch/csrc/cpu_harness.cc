@@ -7,6 +7,8 @@
 // decode path uses it.
 #include <string.h>
 
+#include <vector>
+
 #include "c2_decrypt.cuh"
 #include "frame_remix.cuh"
 #include "general_gather.cuh"
@@ -75,19 +77,90 @@ extern "C" void cpu_frame_remix(
                        bypassed, out_shift, out);
 }
 
+template <int kC>
+static void huffman_blocks(const HuffmanArgs& a, const uint32_t* words,
+                           int64_t n_words, int window_words, int trim,
+                           int* counts) {
+  // the kernel's blocks of whole chains: each block's window of words
+  // staged into a host copy when it fits ``window_words`` (``trim`` words
+  // short of its end, to test the redo), else the block reads the track's
+  // words; a read outside the window decodes the block again from the
+  // track's words.  counts: blocks staged, blocks decoded again.
+  const int nb0e = a.NB0 > 0 ? a.NB0 : 1;
+  const int chains = huffman_chains_per_block(nb0e, a.nsub);
+  const int Bce = a.L / nb0e;
+  uint16_t code[kHuffmanCodeRows * 512];
+  for (int i = 0; i < kHuffmanCodeRows * 512; ++i)
+    code[i] = huffman_code_entry(i >> 9, i & 511);
+  std::vector<uint32_t> win;
+  for (int c0 = 0; c0 < Bce; c0 += chains) {
+    const int nc = Bce - c0 < chains ? Bce - c0 : chains;
+    const int n = nc * nb0e * a.nsub;
+    int64_t lo = INT64_MAX, hi = INT64_MIN;
+    bool ok = true;
+    for (int q = 0; q < n; ++q) {
+      int l, u;
+      int64_t wl, wh;
+      huffman_block_sublane(q, c0, nc, nb0e, &l, &u);
+      if (huffman_sublane_words(a, l, u, &wl, &wh)) {
+        lo = wl < lo ? wl : lo;
+        hi = wh > hi ? wh : hi;
+      } else {
+        ok = false;
+      }
+    }
+    const int64_t lo4 = lo & ~(int64_t)3;
+    if (ok && n > 0 && hi - lo4 <= window_words) {
+      const int64_t full = ((hi - lo4 + 3) >> 2) * 4;
+      win.resize(full - trim > 0 ? full - trim : 1);
+      for (size_t w = 0; w < win.size(); ++w)
+        win[w] = dvda_word(words, n_words, lo4 + (int64_t)w);
+      HuffmanWindowWords W{win.data(), lo4, (uint32_t)win.size(), false};
+      for (int q = 0; q < n; ++q) {
+        int l, u;
+        huffman_block_sublane(q, c0, nc, nb0e, &l, &u);
+        huffman_decode_sublane<kC>(l, u, a, code, W);
+      }
+      ++counts[0];
+      if (!W.outside) continue;
+      ++counts[1];
+    }
+    HuffmanGlobalWords G{words, n_words};
+    for (int q = 0; q < n; ++q) {
+      int l, u;
+      huffman_block_sublane(q, c0, nc, nb0e, &l, &u);
+      huffman_decode_sublane<kC>(l, u, a, code, G);
+    }
+  }
+}
+
+// window_words < 0: the kernel's budget; trim > 0 stages windows that
+// many words short (at least one word).  counts[0]: blocks staged, counts[1]: decoded again.
 extern "C" void cpu_huffman_decode(
     const uint32_t* words, int64_t n_words, int64_t word_base,
     const int32_t* bitpos, const int32_t* codebook, const int32_t* lsb_bits,
     const int32_t* offset, const int32_t* quant, const int32_t* nbyp,
     const int8_t* bypk, const int8_t* bypv, int32_t* res, int32_t* byp_field,
     int8_t* byp_slots, int L, int nsub, int C, int S0, int k, int has_burst,
-    int NB0) {
-  for (int l = 0; l < L; ++l)
-    for (int u = 0; u < nsub; ++u)
-      huffman_decode_sublane(l, u, L, nsub, C, S0, k, has_burst != 0, NB0,
-                             words, n_words, word_base, bitpos, codebook,
-                             lsb_bits, offset, quant, nbyp, bypk, bypv, res,
-                             byp_field, byp_slots);
+    int NB0, int window_words, int trim, int* counts) {
+  const HuffmanArgs a{L,      nsub,     C,        S0,     k,
+                      NB0,    has_burst != 0,     word_base,
+                      bitpos, codebook, lsb_bits, offset, quant,
+                      nbyp,   bypk,     bypv,     res,    byp_field,
+                      byp_slots};
+  if (window_words < 0) window_words = kHuffmanWindowWords;
+  counts[0] = counts[1] = 0;
+  switch (C) {
+#define DVDA_HUFFMAN_CASE(c)                                            \
+  case c:                                                               \
+    return huffman_blocks<c>(a, words, n_words, window_words, trim, counts);
+    DVDA_HUFFMAN_CASE(1) DVDA_HUFFMAN_CASE(2) DVDA_HUFFMAN_CASE(3)
+    DVDA_HUFFMAN_CASE(4) DVDA_HUFFMAN_CASE(5) DVDA_HUFFMAN_CASE(6)
+    DVDA_HUFFMAN_CASE(7) DVDA_HUFFMAN_CASE(8)
+#undef DVDA_HUFFMAN_CASE
+    default:
+      return huffman_blocks<0>(a, words, n_words, window_words, trim, counts);
+  }
 }
 
 extern "C" void cpu_mlp_filter(
@@ -96,10 +169,30 @@ extern "C" void cpu_mlp_filter(
     const int32_t* iir_init, const int32_t* block_len,
     const int32_t* fir_state0, const int32_t* iir_state0, int32_t* out_tl,
     int32_t* fir_state, int32_t* iir_state, int B, int NB, int S) {
-  for (int lane = 0; lane < B; ++lane)
-    mlp_filter_lane(lane, B, NB, S, res_tl, rc_fir, rc_iir, shift, quant,
-                    iir_reset, iir_init, block_len, fir_state0, iir_state0,
-                    out_tl, fir_state, iir_state);
+  // the kernel's blocks of kFilterLanes lanes, each walking its rows in
+  // tiles of kFilterRows staged into a local copy, as the card's shared
+  // memory holds them
+  const MlpFilterTables t{rc_fir, rc_iir, shift, quant, iir_reset, iir_init,
+                          block_len};
+  const int64_t T = (int64_t)NB * S;
+  int32_t tile[kFilterRows][kFilterLanes];
+  for (int lane0 = 0; lane0 < B; lane0 += kFilterLanes) {
+    const int nl = B - lane0 < kFilterLanes ? B - lane0 : kFilterLanes;
+    MlpFilterLane lanes[kFilterLanes];
+    for (int j = 0; j < nl; ++j)
+      mlp_filter_begin(lanes[j], lane0 + j, NB, S, t, fir_state0,
+                       iir_state0);
+    for (int64_t t0 = 0; t0 < T; t0 += kFilterRows) {
+      const int rows = T - t0 < kFilterRows ? (int)(T - t0) : kFilterRows;
+      for (int r = 0; r < rows; ++r)
+        memcpy(tile[r], res_tl + (t0 + r) * B + lane0, 4 * nl);
+      for (int j = 0; j < nl; ++j)
+        mlp_filter_tile(lanes[j], lane0 + j, NB, S, t, tile, j, rows,
+                        out_tl + t0 * B + lane0 + j, B);
+    }
+    for (int j = 0; j < nl; ++j)
+      mlp_filter_end(lanes[j], lane0 + j, fir_state, iir_state);
+  }
 }
 
 extern "C" void cpu_output_stage(

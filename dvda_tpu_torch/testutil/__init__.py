@@ -25,7 +25,8 @@ from .synth import (BPS_CODE, RATE_CODE, MlpTrackSpec, PcmTrackSpec,
 __all__ = ["MlpSynthConfig", "synth_mlp_stream", "MlpTrackSpec",
            "PcmTrackSpec", "build_disc", "BPS_CODE", "RATE_CODE",
            "filter_inputs", "output_stage_inputs", "frame_remix_inputs",
-           "huffman_inputs", "huffman_worst_case", "general_inputs",
+           "huffman_inputs", "huffman_worst_case", "huffman_edge_inputs",
+           "FILTER_EDGES", "HUFFMAN_EDGES", "general_inputs",
            "encrypt_sectors_batch",
            "cppm_sector_mix"]
 
@@ -36,12 +37,14 @@ def filter_inputs(seed: int, B: int, NB: int, S: int, extreme: bool = False,
     time-leading ``[NB, S, B]``).  The default pattern has audio-like
     magnitudes and ragged block lengths; ``extreme`` spans the whole int32
     residual range and 16-bit taps (the limb-arithmetic stress pattern of
-    tests/test_pallas_filter.py); ``states`` gives nonzero initial states."""
+    tests/test_pallas_filter.py), and ``extreme=2`` full-range int32 taps as
+    well (sums that wrap int64); ``states`` gives nonzero initial states."""
     rng = np.random.default_rng(seed)
     if extreme:
+        tap = 2**31 if extreme == 2 else 2**15
         res = rng.integers(-2**31, 2**31 - 1, (B, NB, S))
-        fir = rng.integers(-2**15, 2**15, (B, NB, 8))
-        iir = rng.integers(-2**15, 2**15, (B, NB, 8))
+        fir = rng.integers(-tap, tap, (B, NB, 8))
+        iir = rng.integers(-tap, tap, (B, NB, 8))
         shift = rng.integers(0, 16, (B, NB))
         quant = rng.integers(0, 16, (B, NB))
         irst = rng.random((B, NB)) < 0.5
@@ -141,6 +144,78 @@ def huffman_inputs(seed: int, L: int, nsub: int, C: int, S0: int, k: int,
         quant=rng.integers(0, 8, (L, C)).astype(i32), nbyp=nbyp.astype(i32),
         bypk=(np.cumsum(bits, 1) - bits).astype(np.int8),
         bypv=bits.astype(np.int8), S0=S0, J=C + (1 if burst else 0), k=k)
+
+
+#: K1 edge shapes (B, NB, S, extreme, states) for :func:`filter_inputs`:
+#: lane counts off the kernel's 32-lane block and off a multiple of 4 (its
+#: 4-byte staging copy), NB = 1, S = 1 (block lengths 1 and 0), S of 7, 33
+#: and 100 (off and across its 32-row tiles), blocks shorter than S and
+#: mid-chain IIR resets (every pattern), the extreme-value pattern, and
+#: full-range taps (extreme=2: sums that wrap int64); S of 34, 38, 28 and
+#: 46 put block_len (S // 2) 1, 3, 6 and 7 samples into an 8-sample group
+FILTER_EDGES = (
+    (33, 3, 40, False, True), (100, 1, 40, False, False),
+    (64, 5, 1, False, True), (70, 4, 7, True, True),
+    (96, 2, 100, False, True), (40, 6, 33, True, False),
+    (1, 3, 5, False, True), (48, 3, 40, 2, True),
+    (36, 3, 34, False, True), (40, 3, 38, False, False),
+    (64, 2, 28, False, True), (40, 3, 46, False, True),
+)
+
+#: K5 edge cases (name, seed, L, nsub, C, S0, k, NB0, burst, slots, layout)
+#: for :func:`huffman_edge_inputs`: ``chains`` lays the sub-lanes' start
+#: bits out in order as a stream does (every block's window fits), with a
+#: ragged last block of chains; ``mixed`` spreads the start bits of the
+#: chains past the first 8 over more words than a block stages (those
+#: blocks read device memory); ``corrupt`` puts lsb_bits of 40 and -3 in
+#: the first block (no bound: it reads device memory); ``outside`` starts
+#: before word 0 and reads past the last word; nsub > 1 (split), NB0 == 0,
+#: C = 8 and C = 9 (the kernel's runtime-width body)
+HUFFMAN_EDGES = (
+    ("fits", 1, 16 * 12, 1, 4, 40, 40, 16, True, True, "chains"),
+    ("mixed", 2, 16 * 20, 1, 2, 40, 40, 16, True, False, "mixed"),
+    ("corrupt", 3, 16 * 16, 1, 6, 40, 40, 16, True, False, "corrupt"),
+    ("outside", 4, 16 * 3, 1, 2, 40, 40, 16, True, True, "outside"),
+    ("split", 5, 16 * 9, 5, 4, 40, 8, 16, True, True, "chains"),
+    ("nb0zero", 6, 300, 2, 3, 16, 8, 0, False, False, "chains"),
+    ("c8", 7, 16 * 2, 1, 8, 40, 40, 16, True, True, "chains"),
+    ("c9", 8, 16, 1, 9, 20, 20, 16, True, False, "chains"),
+)
+
+
+def huffman_edge_inputs(edge: tuple) -> dict:
+    """The arguments of one :data:`HUFFMAN_EDGES` case, as
+    :func:`huffman_inputs` gives them (plus ``NB0`` and ``slots``), with
+    start bits laid out by the case's ``layout``."""
+    name, seed, L, nsub, C, S0, k, NB0, burst, slots, layout = edge
+    case = huffman_inputs(seed, L, nsub, C, S0, k, burst)
+    rng = np.random.default_rng(seed + 100)
+    # in order, lane by lane and sub-lane by sub-lane, as a stream is
+    gaps = rng.integers(k * C * 4, k * C * 12, L * nsub)
+    pos = np.cumsum(gaps) - gaps[0]
+    pos[::3] &= ~31                           # b == 0 alignments
+    W = int(pos[-1]) // 32 + 64
+    base = 16
+    if layout == "mixed":  # chains past the first 8 at random over 32 K words
+        W = 32768
+        chain_lanes = (NB0 or 1) * 8 * nsub
+        far = rng.integers(0, (W - base - 64) * 32, L * nsub)
+        far[chain_lanes] = 0
+        far[-1] = (W - base - 64) * 32
+        pos = np.where(np.arange(L * nsub) < chain_lanes, pos, far)
+    elif layout == "corrupt":
+        case["lsb_bits"][3, 1] = 40
+        case["lsb_bits"][7, 0] = -3
+    elif layout == "outside":  # from before word 0 to past the last word
+        base = 0
+        pos = pos - 3000
+        W = int(pos[-1]) // 32 - 4
+    case["words"] = rng.integers(0, 2**32, W, dtype=np.uint64).astype(
+        np.uint32)
+    case["word_base"] = base
+    case["bitpos"] = pos.reshape(L, nsub).astype(np.int32)
+    case.update(name=name, NB0=NB0, slots=slots)
+    return case
 
 
 def output_stage_inputs(seed: int, chains: int, fpc: int, L0: int,

@@ -37,14 +37,16 @@ from dvda_tpu_torch.ops.rematrix import (apply_output_stage_reference,
 from dvda_tpu_torch.parallel.mesh import make_mesh
 from dvda_tpu_torch.parallel.step import (decode_step, example_batch,
                                           make_sharded_step)
-from dvda_tpu_torch.testutil import (BPS_CODE, LANE_PACK_EDGES,
+from dvda_tpu_torch.testutil import (BPS_CODE, FILTER_EDGES, HUFFMAN_EDGES,
+                                     LANE_PACK_EDGES,
                                      OUTPUT_STAGE_EDGES, RATE_CODE,
                                      MlpSynthConfig, MlpTrackSpec,
                                      PcmTrackSpec, build_disc,
                                      cppm_sector_mix, encrypt_sectors_batch,
                                      filter_inputs, frame_remix_inputs,
                                      general_inputs, huffman_inputs,
-                                     huffman_worst_case, output_stage_inputs,
+                                     huffman_edge_inputs, huffman_worst_case,
+                                     output_stage_inputs,
                                      synth_mlp_stream)
 
 pytestmark = pytest.mark.cuda
@@ -68,6 +70,22 @@ def test_filter_kernel_matches_plain(dev, seed, shape, extreme):
     assert mlp_filter_blocks_tl.launches == before + 1
     ref = mlp_filter_blocks_tl_reference(*args)
     for g, r in zip(got, ref):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("shape", FILTER_EDGES,
+                         ids=lambda s: "-".join(map(str, s)))
+def test_filter_kernel_edge_shapes(dev, shape):
+    """K1's 32-lane blocks and 32-row staged tiles: ragged lane counts (the
+    4-byte copy where B % 4 != 0), NB = 1, S = 1, S off and across the
+    tiles, short blocks, resets, the extreme values."""
+    B, NB, S, extreme, states = shape
+    args = [torch.from_numpy(np.asarray(a)).to(dev)
+            for a in filter_inputs(B + S, B, NB, S, extreme, states)]
+    before = mlp_filter_blocks_tl.launches
+    got = mlp_filter_blocks_tl(*args)
+    assert mlp_filter_blocks_tl.launches == before + 1
+    for g, r in zip(got, mlp_filter_blocks_tl_reference(*args), strict=True):
         assert torch.equal(g, r)
 
 
@@ -234,6 +252,36 @@ def test_huffman_kernel_worst_case(dev):
         got = decode_residuals_device(*args)
         ref = decode_residuals_reference(*args)
         for g, r in zip(got, ref):
+            assert torch.equal(g, r), align
+
+
+@pytest.mark.parametrize("edge", HUFFMAN_EDGES, ids=lambda e: e[0])
+def test_huffman_kernel_edge_cases(dev, edge):
+    """K5's blocks of whole chains: windows that fit and ones that read
+    device memory (spread or corrupt tables), a ragged last block, words
+    outside the stream, nsub > 1, NB0 == 0, C = 8 and 9."""
+    case = huffman_edge_inputs(edge)
+    args = _huffman_args(case, dev)
+    kw = dict(NB0=case["NB0"], word_base=torch.tensor(
+        [case["word_base"]], dtype=torch.int32, device=dev))
+    if case["slots"]:
+        kw.update(bypk=torch.from_numpy(case["bypk"]).to(dev),
+                  bypv=torch.from_numpy(case["bypv"]).to(dev))
+    before = decode_residuals_device.launches
+    got = decode_residuals_device(*args, **kw)
+    assert decode_residuals_device.launches == before + 1
+    for g, r in zip(got, decode_residuals_reference(*args, **kw),
+                    strict=True):
+        assert torch.equal(g, r)
+
+
+def test_huffman_kernel_worst_case_chain(dev):
+    """The 39-bit symbols at every alignment as one chain of 3 blocks."""
+    for align in range(32):
+        args = _huffman_args(huffman_worst_case(align), dev)
+        got = decode_residuals_device(*args, NB0=3)
+        ref = decode_residuals_reference(*args, NB0=3)
+        for g, r in zip(got, ref, strict=True):
             assert torch.equal(g, r), align
 
 

@@ -31,12 +31,14 @@ from dvda_tpu_torch.ops.pcm_unpack import decode_chunks_reference
 from dvda_tpu_torch.ops.rematrix import (apply_output_stage_reference,
                                          output_stage_reference,
                                          rematrix_frames_reference)
-from dvda_tpu_torch.testutil import (LANE_PACK_EDGES, OUTPUT_STAGE_EDGES,
+from dvda_tpu_torch.testutil import (FILTER_EDGES, HUFFMAN_EDGES,
+                                     LANE_PACK_EDGES, OUTPUT_STAGE_EDGES,
                                      MlpSynthConfig, MlpTrackSpec,
                                      PcmTrackSpec, build_disc,
                                      cppm_sector_mix, filter_inputs,
                                      frame_remix_inputs,
                                      general_inputs, huffman_inputs,
+                                     huffman_edge_inputs,
                                      huffman_worst_case,
                                      output_stage_inputs, synth_mlp_stream)
 
@@ -62,7 +64,7 @@ def harness(tmp_path_factory):
     lib.cpu_output_stage.argtypes = [p] * 12 + [i] * 7
     lib.cpu_huffman_decode.restype = None
     lib.cpu_huffman_decode.argtypes = ([p, ctypes.c_int64, ctypes.c_int64]
-                                       + [p] * 11 + [i] * 7)
+                                       + [p] * 11 + [i] * 9 + [p])
     i64 = ctypes.c_int64
     lib.cpu_pcm_unpack.restype = None
     lib.cpu_pcm_unpack.argtypes = [p, i64, i, i, i, i, p, p]
@@ -102,6 +104,25 @@ def test_filter_body_matches_plain(harness, seed, shape, extreme, states):
     assert np.array_equal(out, ref[0].numpy())
     assert np.array_equal(fs, ref[1].numpy())
     assert np.array_equal(is_, ref[2].numpy())
+
+
+@pytest.mark.parametrize("shape", FILTER_EDGES,
+                         ids=lambda s: "-".join(map(str, s)))
+def test_filter_body_edge_shapes(harness, shape):
+    """K1's body through the kernel's 32-lane blocks and 32-row tiles at
+    the edge shapes: ragged lane counts, NB = 1, S = 1, S off and across
+    the tiles, short blocks, resets, the extreme values."""
+    B, NB, S, extreme, states = shape
+    args = filter_inputs(B + S, B, NB, S, extreme, states)
+    out = np.empty((NB, S, B), np.int32)
+    fs = np.empty((B, 8), np.int32)
+    is_ = np.empty((B, 8), np.int32)
+    c_args = list(args[:5]) + [args[5].astype(np.uint8)] + list(args[6:])
+    harness.cpu_mlp_filter(*[_ptr(a) for a in c_args], _ptr(out), _ptr(fs),
+                           _ptr(is_), B, NB, S)
+    ref = mlp_filter_blocks_tl_reference(*map(torch.from_numpy, args))
+    for got, want in zip((out, fs, is_), ref, strict=True):
+        assert np.array_equal(got, want.numpy())
 
 
 @pytest.mark.parametrize("nbytes", [0, 2, 3])
@@ -174,7 +195,12 @@ def test_frame_remix_body_shift_edges(harness, extreme):
     _frame_remix_check(harness, args, 6)
 
 
-def _huffman_check(harness, case, NB0, slots):
+def _huffman_check(harness, case, NB0, slots, window_words=-1, trim=0):
+    """K5's body, block by block as the kernel runs it (``window_words``
+    < 0: the kernel's staging budget; 0: every block reads the words in
+    place; ``trim``: windows staged that many words short, so that blocks
+    decode again from the words), against the plain version; returns
+    (residuals, blocks staged, blocks decoded again)."""
     L, C = case["codebook"].shape
     nsub = case["bitpos"].shape[1]
     S0 = case["S0"]
@@ -184,12 +210,14 @@ def _huffman_check(harness, case, NB0, slots):
     tabs = [np.ascontiguousarray(case[n]) for n in (
         "bitpos", "codebook", "lsb_bits", "offset", "quant", "nbyp", "bypk",
         "bypv")]
+    counts = np.zeros(2, np.int32)
     harness.cpu_huffman_decode(
         _ptr(case["words"]), case["words"].size, case.get("word_base", 0),
         *[_ptr(t) for t in tabs[:6]],
         *([_ptr(tabs[6]), _ptr(tabs[7])] if slots else [None, None]),
         _ptr(res), None if slots else _ptr(field), _ptr(bits) if slots
-        else None, L, nsub, C, S0, case["k"], int(case["J"] == C + 1), NB0)
+        else None, L, nsub, C, S0, case["k"], int(case["J"] == C + 1), NB0,
+        window_words, trim, _ptr(counts))
     ref = decode_residuals_reference(
         torch.from_numpy(case["words"].view(np.int32)),
         *map(torch.from_numpy, tabs[:6]), S0, case["J"], case["k"], NB0=NB0,
@@ -198,7 +226,7 @@ def _huffman_check(harness, case, NB0, slots):
         bypv=torch.from_numpy(tabs[7]) if slots else None)
     assert np.array_equal(res.reshape(ref[0].shape), ref[0].numpy())
     assert np.array_equal(bits if slots else field, ref[1].numpy())
-    return res
+    return res, int(counts[0]), int(counts[1])
 
 
 @pytest.mark.parametrize("seed,L,nsub,C,S0,k,NB0,burst,slots", [
@@ -210,7 +238,7 @@ def _huffman_check(harness, case, NB0, slots):
 def test_huffman_body_matches_plain(harness, seed, L, nsub, C, S0, k, NB0,
                                     burst, slots):
     case = huffman_inputs(seed, L, nsub, C, S0, k, burst)
-    res = _huffman_check(harness, case, NB0, slots)
+    res, _, _ = _huffman_check(harness, case, NB0, slots)
     assert (res < 0).any() and (res > 0).any()
 
 
@@ -223,6 +251,52 @@ def test_huffman_body_worst_case(harness):
                     bypv=mask.astype(np.int8))
         for slots in (False, True):
             _huffman_check(harness, case, 0, slots)
+
+
+def _huffman_blocks(case):
+    """Thread blocks of K5's launch for ``case``: whole chains (NB0
+    blocks of nsub sub-lanes, NB0 == 0: a lane) filling 128 sub-lanes."""
+    L, nsub, NB0 = case["bitpos"].shape[0], case["bitpos"].shape[1], \
+        case["NB0"]
+    per = max(NB0, 1) * nsub
+    chains = max(1, 128 // per)
+    return -(-(L // max(NB0, 1)) // chains)
+
+
+@pytest.mark.parametrize("source", ["window", "device", "short"])
+@pytest.mark.parametrize("edge", HUFFMAN_EDGES, ids=lambda e: e[0])
+def test_huffman_body_edge_cases(harness, edge, source):
+    """K5 at the edge cases through the staged window where a block's
+    fits, with every block reading the words in place, and with windows
+    cut to their first word (every staged block reads past it and decodes
+    again from the words)."""
+    case = huffman_edge_inputs(edge)
+    res, staged, again = _huffman_check(
+        harness, case, case["NB0"], case["slots"],
+        {"window": -1, "device": 0, "short": -1}[source],
+        1 << 30 if source == "short" else 0)
+    assert (res < 0).any() and (res > 0).any()
+    blocks = _huffman_blocks(case)
+    if source == "device":
+        assert staged == again == 0
+    elif case["name"] in ("mixed", "corrupt"):
+        assert 0 < staged < blocks
+    else:
+        assert staged == blocks
+    assert again == (staged if source == "short" else 0)
+
+
+@pytest.mark.parametrize("align", range(32))
+def test_huffman_body_worst_case_chain(harness, align):
+    """The widest symbols as one chain of 3 blocks (NB0 = 3, the main
+    path's time-leading layout), staged and in place."""
+    case = huffman_worst_case(align)
+    mask = case["byp_mask"][:, None] >> np.arange(6) & 1
+    case.update(bypk=(np.cumsum(mask, 1) - mask).astype(np.int8),
+                bypv=mask.astype(np.int8))
+    for window in (-1, 0):
+        _, staged, again = _huffman_check(harness, case, 3, True, window)
+        assert (staged, again) == ((1, 0) if window else (0, 0))
 
 
 def _pcm_body(harness, chunks, bits, channels, nbytes):

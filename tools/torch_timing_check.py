@@ -19,6 +19,29 @@ The shapes: K6a and K6b on a general-path substream pair of 150,000
 blocks (``testutil.general_inputs``), K9 at 6,000 frames x 80 samples,
 K234 at the headline chunk with L0 of 40, 80 and 160, and ``torch.take``
 of 30 M int32.  Exits non-zero without CUDA.
+
+    python3 tools/torch_timing_check.py chains
+
+times instead what bounds the serial kernel K1: a one-warp probe built
+with ``nvcc`` into ``build/`` (the SM clock under one warp; cycles per
+instruction of a dependent chain and of eight independent chains for the
+32 x 32 -> 64-bit integer multiply-add, the float64 multiply-add and the
+shared-memory load; cycles per sample of K1's float64 group on its own),
+then K1 at the headline chunk [16, 40, 1,536] with every block full and
+16-bit taps (its float64 groups), the same 640 samples as one block of
+640, full-range taps (its one-sample step) and the smoke's pattern of half
+blocks (queued card time, ns and cycles per dependent step).
+
+    python3 tools/torch_timing_check.py k1 PARENT
+
+times K1 of this checkout against K1 of another checkout at PARENT (its
+``csrc/mlp_filter.cu`` built alone with ``nvcc`` into ``build/``), both
+launched through their C interface on the same inputs in one process, in
+the order parent, change, change, parent: at the headline chunk (the
+smoke's inputs), at the fused step's 2,048 lanes (``example_batch`` as
+``decode_step`` flattens it) and at the churn disc's widest substream
+(K6a's outputs on the smoke's general-path disc, [32, 40, 18,000]).  The
+two kernels' outputs must be equal.
 """
 
 from __future__ import annotations
@@ -80,6 +103,271 @@ def _report(smoke, label: str, fn, reps: int) -> None:
           f"to back {back:.4f} ms", flush=True)
 
 
+_PROBE = r"""
+// One warp on one SM, each kernel timed by CUDA events: the SM clock, the
+// issue of single instructions (a dependent chain, eight independent
+// chains), and K1's float64 group (csrc/mlp_filter.cuh) on its own,
+// residuals from shared memory and values stored as the kernel does.
+#include <cstdio>
+#include <cstdint>
+#include "mlp_filter.cuh"
+constexpr int N = 1 << 16;
+__global__ void spin(long long cycles) {
+  const long long t = clock64();
+  while (clock64() - t < cycles) {}
+}
+template <int op>
+__global__ void chain(int a, int b, double x, double y, long long* sink) {
+  __shared__ unsigned sm[1024];
+  for (int i = threadIdx.x; i < 1024; i += 32) sm[i] = (i * 7 + 1) & 1023;
+  __syncwarp();
+  int64_t w[8];
+  double d[8];
+  unsigned p = threadIdx.x;
+  for (int j = 0; j < 8; ++j) w[j] = a + j + threadIdx.x, d[j] = x + j;
+  for (int i = 0; i < N; ++i) {
+    if (op == 0) w[0] = (int64_t)(int32_t)w[0] * b + w[0];
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      if (op == 1) w[j] = (int64_t)(int32_t)w[j] * b + w[j];
+      if (op == 3) d[j] = fma(d[j], x, y);
+    }
+    if (op == 2) d[0] = fma(d[0], x, y);
+    if (op == 4) p = sm[p];
+  }
+  long long s = p;
+  for (int j = 0; j < 8; ++j) s += w[j] + (long long)d[j];
+  sink[threadIdx.x] = s;
+}
+__global__ void group(int groups, int32_t* out, long long* sink) {
+  __shared__ int32_t tile[kFilterGroup][kFilterLanes];
+  for (int j = 0; j < kFilterGroup; ++j)
+    tile[j][threadIdx.x] = (j * 37 + threadIdx.x * 11) % 200 - 100;
+  __syncwarp();
+  MlpFilterLane L = {};
+  for (int k = 0; k < 8; ++k) {
+    L.cur.fc[k] = L.cur.ic[k] = (k & 1 ? -1 : 1) * (k + 1) * 3;
+    L.fs[k] = L.is[k] = threadIdx.x + k;
+    L.fcd[k] = L.icd[k] = L.cur.fc[k];
+  }
+  L.cur.sh = 6;
+  L.scale = 1.0 / 64;
+  L.mask = ~0u;
+  for (int g = 0; g < groups; ++g)
+    mlp_filter_run_f64(L, tile, threadIdx.x, 0, out + threadIdx.x,
+                       kFilterLanes);
+  sink[threadIdx.x] = (long long)L.acc + L.fs[7];
+}
+static float ms(void (*launch)(void*), void* arg) {
+  cudaEvent_t e0, e1;
+  cudaEventCreate(&e0);
+  cudaEventCreate(&e1);
+  launch(arg);
+  cudaEventRecord(e0);
+  launch(arg);
+  cudaEventRecord(e1);
+  cudaEventSynchronize(e1);
+  float t;
+  cudaEventElapsedTime(&t, e0, e1);
+  return t;
+}
+long long* sink;
+int32_t* out;
+template <int op> void run_chain(void*) {
+  chain<op><<<1, 32>>>(3, 5, 1.0000001, 0.5, sink);
+}
+void run_group(void*) { group<<<1, 32>>>(N / kFilterGroup, out, sink); }
+void run_spin(void*) { spin<<<1, 32>>>(1LL << 26); }
+int main() {
+  cudaMalloc(&sink, 32 * sizeof(long long));
+  cudaMalloc(&out, kFilterGroup * kFilterLanes * sizeof(int32_t));
+  const double mhz = (1 << 26) / (ms(run_spin, nullptr) * 1e3);
+  printf("  SM clock under one warp %.0f MHz\n", mhz);
+  struct { const char* name; void (*fn)(void*); int per; } t[] = {
+      {"IMAD.WIDE dependent", run_chain<0>, 1},
+      {"IMAD.WIDE 8 chains", run_chain<1>, 8},
+      {"DFMA dependent", run_chain<2>, 1},
+      {"DFMA 8 chains", run_chain<3>, 8},
+      {"LDS dependent", run_chain<4>, 1},
+      {"K1 float64 group of 8, a sample", run_group, 1}};
+  for (auto& r : t)
+    printf("  %-34s %.1f cycles\n", r.name,
+           ms(r.fn, nullptr) * 1e3 * mhz / ((double)N * r.per));
+  return cudaGetLastError() != cudaSuccess;
+}
+"""
+
+
+def _chains(smoke) -> int:
+    """K1's groups and the card's instruction rates (see the module note)."""
+    import subprocess
+
+    import numpy as np
+    import torch
+
+    from dvda_tpu_torch.kernels.build import ARCH_FLAGS, _nvcc
+    from dvda_tpu_torch.ops.mlp_filter import mlp_filter_blocks_tl
+    from dvda_tpu_torch.testutil import filter_inputs
+
+    out = os.path.join(ROOT, "build", "k1_probe")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, "probe.cu"), "w") as f:
+        f.write(_PROBE)
+    subprocess.run([_nvcc()] + ARCH_FLAGS + [
+        "-std=c++17", "-O3", "-I", os.path.join(ROOT, "dvda_tpu_torch", "csrc"),
+        "-o",
+        os.path.join(out, "probe"), os.path.join(out, "probe.cu")],
+        check=True)
+    probe = subprocess.run([os.path.join(out, "probe")], capture_output=True,
+                           text=True)
+    print("one warp:\n" + probe.stdout, end="", flush=True)
+    mhz = float(probe.stdout.split("MHz")[0].split()[-1])
+    dev = torch.device("cuda", 0)
+    B = 1536
+    for label, (NB, S), extreme, full in (
+            ("16-bit taps, full blocks (float64)", (16, 40), False, True),
+            ("16-bit taps, one block (float64)", (1, 640), False, True),
+            ("full-range taps, full blocks (one-sample step)", (16, 40), 2,
+             True),
+            ("16-bit taps, the smoke's half blocks", (16, 40), False,
+             False)):
+        args = [torch.from_numpy(np.asarray(a)).to(dev)
+                for a in filter_inputs(0, B, NB, S, extreme, states=True)]
+        if full:
+            args[7] = torch.full_like(args[7], S)
+        ms = smoke._times(lambda: mlp_filter_blocks_tl(*args), 50)[0]
+        print(f"K1 [{NB}, {S}, {B}], {label}: {ms:.4f} ms on the card, "
+              f"{ms * 1e6 / (NB * S):.1f} ns = "
+              f"{ms * 1e3 * mhz / (NB * S):.0f} cycles at {mhz:.0f} MHz per "
+              "dependent step", flush=True)
+    return probe.returncode
+
+
+def _k1_parent(parent: str):
+    """The ``dvda_mlp_filter`` of the checkout at ``parent``, built alone."""
+    import ctypes
+    import subprocess
+
+    from dvda_tpu_torch.kernels.build import NVCC_FLAGS, _nvcc
+
+    out = os.path.join(ROOT, "build", "k1_parent")
+    os.makedirs(out, exist_ok=True)
+    lib = os.path.join(out, "libk1.so")
+    csrc = os.path.join(os.path.abspath(parent), "dvda_tpu_torch", "csrc")
+    subprocess.run([_nvcc()] + NVCC_FLAGS + [
+        "-shared", "-I", csrc, "-o", lib, os.path.join(csrc, "mlp_filter.cu")],
+        check=True)
+    fn = ctypes.CDLL(lib).dvda_mlp_filter
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    return fn
+
+
+def _k1_launcher(fn, args):
+    """(a call of ``fn`` on the ten K1 arguments ``args``, its outputs)."""
+    import torch
+
+    NB, S, B = args[0].shape
+    outs = (torch.empty_like(args[0]), torch.empty_like(args[8]),
+            torch.empty_like(args[9]))
+    ptrs = [t.data_ptr() for t in (*args, *outs)]
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call():
+        rc = fn(*ptrs, B, NB, S, stream)
+        if rc:
+            raise RuntimeError(f"dvda_mlp_filter: CUDA error {rc}")
+
+    return call, outs
+
+
+def _churn_k1_args(smoke, dev) -> tuple:
+    """K1's arguments at the smoke's general-path disc's widest substream:
+    the disc's tables as the general path builds them, then K6a."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    import dvda_tpu_torch
+    from dvda_tpu_torch import host
+    from dvda_tpu_torch.codecs.mlp import native_engine as ne
+    from dvda_tpu_torch.codecs.mlp.track import assemble_track_stream
+    from dvda_tpu_torch.ops.general_gather import lane_pack
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
+        layout, frames = smoke.phase_synth_general(work)
+        reader = (dvda_tpu_torch.open_disc(layout.path).open_titleset(1)
+                  .open_title(1).open_track(1).open_reader())
+        stream, bnd, probe_end = assemble_track_stream(reader.aob,
+                                                       reader.track.span)
+    inc = host.parse_mlp_stream_begin(stream)
+    try:
+        inc.step(0)
+        v = inc.view()
+        F = ne._frame_cut(v.frame_end, np.asarray(bnd, dtype=np.int64),
+                          probe_end)
+        subs, _ = ne.general_tables(v, F, frames, 6, dev)
+        packed = [lane_pack(u) for u in subs]
+        torch.cuda.synchronize()
+    finally:
+        inc.close()
+    p = max(packed, key=lambda p: p[0].shape[2])
+    return (*p[:8], p[8], p[8])
+
+
+def _k1_against(smoke, parent: str) -> int:
+    """K1 here against K1 at ``parent`` (see the module note)."""
+    import numpy as np
+    import torch
+
+    from dvda_tpu_torch.kernels.build import kernel_library
+    from dvda_tpu_torch.parallel.step import example_batch
+    from dvda_tpu_torch.testutil import filter_inputs
+
+    dev = torch.device("cuda", 0)
+    fns = {"parent": _k1_parent(parent),
+           "change": kernel_library().dvda_mlp_filter}
+    b = example_batch(device=dev, **smoke.STEP)
+    F, C, NB, S = b.residuals.shape
+
+    def flat(x):
+        return x.reshape((F * C,) + tuple(x.shape[2:])).contiguous()
+
+    zeros = b.residuals.new_zeros((F * C, 8))
+    shapes = [
+        ("headline chunk", [torch.from_numpy(np.asarray(a)).to(dev) for a in
+                            filter_inputs(0, 1536, 16, 40, states=True)]),
+        ("step", [flat(b.residuals).permute(1, 2, 0).contiguous(),
+                  *(flat(getattr(b, k)) for k in (
+                      "rc_fir", "rc_iir", "shift", "quant", "iir_reset",
+                      "iir_init", "block_len")), zeros, zeros]),
+        ("churn substream", list(_churn_k1_args(smoke, dev)))]
+    for label, args in shapes:
+        calls = {k: _k1_launcher(fn, args) for k, fn in fns.items()}
+        for call, _ in calls.values():
+            call()
+        torch.cuda.synchronize()
+        same = all(torch.equal(g, w) for g, w in zip(calls["parent"][1],
+                                                     calls["change"][1]))
+        if not same:
+            print(f"K1 {label}: the parent's and the change's outputs "
+                  "differ", flush=True)
+            return 1
+        ms = {k: [] for k in fns}
+        for k in ("parent", "change", "change", "parent"):
+            ms[k].append(smoke._times(calls[k][0], 50)[0])
+        NB, S, B = args[0].shape
+        print(f"K1 {label} [NB, S, B] = {NB, S, B}: parent "
+              f"{ms['parent'][0]:.4f} / {ms['parent'][1]:.4f} ms, change "
+              f"{ms['change'][0]:.4f} / {ms['change'][1]:.4f} ms on the card "
+              f"(parent, change, change, parent; change "
+              f"{min(ms['change']) * 1e6 / (NB * S):.1f} ns per dependent "
+              f"step of {NB * S}); outputs equal", flush=True)
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -89,6 +377,13 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     import chip_smoke as smoke
+
+    if sys.argv[1:] == ["chains"]:
+        smoke.phase_device()
+        return _chains(smoke)
+    if sys.argv[1:2] == ["k1"] and len(sys.argv) == 3:
+        smoke.phase_device()
+        return _k1_against(smoke, sys.argv[2])
     from dvda_tpu_torch.kernels.build import kernel_library
     from dvda_tpu_torch.ops.general_gather import lane_pack, series_remix
     from dvda_tpu_torch.ops.rematrix import frame_remix, output_stage
