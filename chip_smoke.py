@@ -17,7 +17,10 @@ Phases, each printing a line; any failure propagates (non-zero exit):
    bit-exact (tolerance 0: the decode is integer arithmetic), at the shapes
    the main paths give it (K1, K234 and K5 also at the edge shapes of
    ``testutil.FILTER_EDGES``, ``OUTPUT_STAGE_EDGES`` and
-   ``HUFFMAN_EDGES``) — K5's inputs come from the
+   ``HUFFMAN_EDGES``; K234n, the narrow readback, at tiers 12 and 16 with
+   its flag rows, at the headline chunk, at ``NARROW_EDGES`` and with
+   samples at the tiers' ends, ``NARROW_RANGES``, so that its flag takes
+   each of 0-3) — K5's inputs come from the
    skip-values parse of the disc's first chunk, K8's from the PCM track's
    chunks, K7's from the encrypted disc's first AOB batch.  A kernel's
    time is its time on the card: CUDA events around calls the host has
@@ -29,10 +32,14 @@ Phases, each printing a line; any failure propagates (non-zero exit):
    symbol of a sub-lane) and K5 its staged stream windows;
 5. MLP path, in both modes: the MLP disc decoded through
    ``open_disc(...)...read_all_packed()`` on the card in standard mode and
-   in device-Huffman mode, each byte-compared with the port's C++
-   host-complete reconstruction of the same stream; the launch counters,
-   zeroed before each mode's decode, must show that it went through its
-   kernels (K1 and K234; K5 too in device-Huffman mode);
+   in device-Huffman mode, each with the narrow readback on (the default)
+   and off, each byte-compared with the port's C++ host-complete
+   reconstruction of the same stream; the launch counters, zeroed before
+   each decode, must show that it went through its kernels (K1, and K234n
+   with narrow on or K234 with it off; K5 too in device-Huffman mode); the
+   tier each decode settled at, the chunks run again and the bytes
+   drained; walls from the assembled stream, narrow on and off
+   alternating, best of 5;
 6. PCM + CPPM path: each track of the encrypted disc through a decrypting
    ``AOBReader`` and the port's ``TrackReader(...).read_all_packed()``,
    and the plaintext copy through ``dvda_tpu_torch.batch.disc_to_wavs``,
@@ -40,6 +47,10 @@ Phases, each printing a line; any failure propagates (non-zero exit):
    ``pcm_repack`` for PCM, host-complete for MLP); the counters, zeroed
    before the phase, must show K7, K8, K1 and K234 launches; walls against
    the host path (host C2);
+6b. tiers: the three short 24-bit streams of
+   tests/test_mlp_native.py:728-765 (quiet, mid, loud) with narrow on and
+   off in both modes, equal to host-complete; they settle at tiers 12, 16
+   and 0;
 7. general path: a 30-second 5.1/96k/24 MLP disc of 12 sections that
    alternate 2 x 40 and 4 x 20 samples per frame, which the pipelined
    driver abandons: K6a and K6b against their plain versions at its
@@ -75,8 +86,8 @@ and ``library_ms``: the time of the one PyTorch call
 that computes the same function where there is one (K8's packed form:
 ``index_select`` by the gather table; K6a's residual gather:
 ``torch.take``), timed here only.  K1's ``launches`` sums its launches
-over every MLP path's run (standard, device Huffman, the CPPM track,
-churn, step, engine).  The last two lines are the kernels' JSON record and
+over every MLP path's run (standard and device Huffman, each with narrow
+on and off, the CPPM track, churn, step, engine).  The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -100,10 +111,18 @@ SECONDS = 30
 #: headline chunk geometry: 256 chains of 16 blocks x 40 samples,
 #: 8 frames of 80 samples per chain
 CHUNK, NB0, S0, L0 = 256, 16, 40, 80
-KERNELS = ("mlp_filter", "output_stage", "huffman_decode", "pcm_unpack",
-           "c2_decrypt", "lane_pack", "series_remix", "frame_remix")
-#: kernels whose build fails if ptxas gives them a stack frame
-NO_STACK = ("output_stage", "lane_pack", "mlp_filter", "huffman_decode")
+KERNELS = ("mlp_filter", "output_stage", "output_stage_narrow",
+           "huffman_decode", "pcm_unpack", "c2_decrypt", "lane_pack",
+           "series_remix", "frame_remix")
+#: kernels whose build fails if ptxas gives them a stack frame (K234n runs
+#: K234's kernel, then its flag kernel ``output_stage_narrow``)
+NO_STACK = ("output_stage", "output_stage_narrow", "lane_pack", "mlp_filter",
+            "huffman_decode")
+#: the three-tier streams (tests/test_mlp_native.py:728-765): 5.1, 24
+#: frames, seed 11, output shifts putting the peak within 12 bits, within
+#: int16, past int16; and the tier each must settle at
+TIER_STREAMS = {"quiet": ((0, 1), 12), "mid": ((5, 6), 16),
+                "loud": ((7, 8), 0)}
 #: the fused decode step's batch: __graft_entry__'s production shape
 STEP = dict(F=256, C=8, NB=16, S=40, C_out=6, seed=0)
 #: the Python-engine disc (5 s) and the bail disc (1 s), headline format
@@ -441,6 +460,8 @@ def phase_kernels(stream, plain, enc_path):
           f"({ev:.4f} ms per call back to back), bound "
           f"{results['output_stage']['bound_ms']:.4f} ms, plain "
           f"{plain_ms:.2f} ms per call")
+    results["output_stage_narrow"] = _kernel_k234n(args, Bc, fpc, L0, C,
+                                                   dev)
 
     # K5 at the headline chunk: both substreams (2 and 4 channels,
     # 256 chains x 16 blocks = 4,096 lanes of 40 samples each), the last
@@ -533,6 +554,69 @@ def phase_kernels(stream, plain, enc_path):
     results["c2_decrypt"] = _kernel_k7(enc_path, dev)
     results["frame_remix"] = _kernel_k9(dev)
     return results
+
+
+def _kernel_k234n(args, Bc: int, fpc: int, L0: int, C: int, dev):
+    """K234n against its plain version, bit-exact with its flag rows: at
+    the headline chunk (``args``, K234's inputs) at both tiers, at K234's
+    edge shapes, and with samples at the tiers' ends so that the flag
+    takes each of 0-3; its card time at the headline at tier 16 (the
+    headline's tier on the main path) and at tier 12."""
+    import numpy as np
+    import torch
+
+    from dvda_tpu_torch.ops.rematrix import (output_stage,
+                                             output_stage_reference)
+    from dvda_tpu_torch.testutil import (NARROW_EDGES, NARROW_RANGES,
+                                         narrow_stage_inputs,
+                                         output_stage_inputs)
+
+    def check(a, chains, n_mats, tier, label):
+        kw = dict(chains=chains, n_mats=n_mats, nbytes=3, tier=tier)
+        got = output_stage(*a, **kw)
+        err = _max_err(got, output_stage_reference(*a, **kw))
+        _require(err == 0, f"K234n {label} tier {tier}: max |kernel - "
+                           f"plain| = {err}")
+        return int(got[-1, -1].item())
+
+    for tier in (12, 16):
+        check(args, Bc, 3, tier, "headline")
+    for (eBc, efpc, eL0, C_tot, C_out, n_mats, _, extreme), tier in \
+            NARROW_EDGES:
+        eargs = [torch.from_numpy(v).to(dev) for v in output_stage_inputs(
+            eL0 + n_mats, eBc, efpc, eL0, C_tot, C_out,
+            extreme=extreme).values()]
+        check(eargs, eBc, n_mats, tier, f"{eBc}x{efpc}x{eL0}")
+    flags = set()
+    for lo, hi, want12, want16 in NARROW_RANGES:
+        fargs = [torch.from_numpy(v).to(dev) for v in narrow_stage_inputs(
+            7, Bc, fpc, L0, C, C, lo, hi).values()]
+        for tier, want in ((12, want12), (16, want16)):
+            flag = check(fargs, Bc, 6, tier, f"[{lo}, {hi}]")
+            _require(flag == want, f"K234n [{lo}, {hi}] tier {tier}: flag "
+                                   f"{flag}, expected {want}")
+            flags.add(flag)
+    _require(flags == {0, 1, 2, 3}, f"K234n flags seen: {sorted(flags)}")
+    print(f"[kernels] K234n output_stage narrow, headline chunk at tiers 12 "
+          f"and 16, {len(NARROW_EDGES)} edge cases, samples at the tiers' "
+          f"ends (flags {sorted(flags)}): bit-exact, flag rows included")
+    times = {}
+    for tier in (16, 12):
+        kw = dict(chains=Bc, n_mats=3, nbytes=3, tier=tier)
+        ms, ev = _times(lambda: output_stage(*args, **kw), 50)
+        plain_ms = _cuda_ms(lambda: output_stage_reference(*args, **kw), 3)
+        out = output_stage(*args, **kw)
+        times[tier] = (ms, plain_ms, out.numel())
+        print(f"[kernels] K234n headline tier {tier}: kernel {ms:.4f} ms on "
+              f"the card ({ev:.4f} ms per call back to back), plain "
+              f"{plain_ms:.2f} ms per call; {out.numel()} bytes out")
+    ms, plain_ms, out_bytes = times[16]
+    # K234's operations, and per output value its two compares
+    ops = Bc * fpc * L0 * (3 * 24 + 8 + C * 6)
+    rec = _record(0, ms, plain_ms, _nbytes(*args) + out_bytes, ops)
+    print(f"[kernels] K234n bound at tier 16: {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']})")
+    return rec
 
 
 def _k9_plain(args, n_mats):
@@ -726,7 +810,8 @@ def _kernel_k7(enc_path, dev):
 
 def phase_main(layout, cfg, smi: str):
     """The 30-second disc through the port's reader API on the card, in
-    standard and in device-Huffman mode."""
+    standard and in device-Huffman mode, each with the narrow readback on
+    (the default: K234n) and off (K234)."""
     import numpy as np
     import torch
 
@@ -743,9 +828,11 @@ def phase_main(layout, cfg, smi: str):
     counters = {"mlp_filter": mlp_filter_blocks_tl,
                 "output_stage": output_stage,
                 "huffman_decode": decode_residuals_device}
-    modes = {"standard": DecodeConfig(device="cuda"),
-             "device_huffman": DecodeConfig(device="cuda",
-                                            device_huffman=True)}
+    # narrow on and off alternate in every round below
+    modes = {f"{m}{'' if narrow else '_wide'}": DecodeConfig(
+        device="cuda", device_huffman=m == "device_huffman",
+        narrow_d2h=narrow)
+        for m in ("standard", "device_huffman") for narrow in (True, False)}
 
     def port_decode(conf):
         reader = (dvda_tpu_torch.open_disc(layout.path, config=conf)
@@ -756,33 +843,42 @@ def phase_main(layout, cfg, smi: str):
         torch.cuda.synchronize()
         return out, time.perf_counter() - t, reader
 
-    got, reader_s, launches = {}, {}, {}
+    got, reader_s, launches, tiers = {}, {}, {}, {}
     for mode, conf in modes.items():
         for fn in counters.values():
             fn.launches = 0
+        output_stage.narrow_launches = 0
         got[mode], first, reader = port_decode(conf)
         launches[mode] = {k: fn.launches for k, fn in counters.items()}
+        launches[mode]["output_stage_narrow"] = output_stage.narrow_launches
+        info = reader.decode_info
+        tiers[mode] = (info["tier"], info["redone"], info["drained"])
         _, second, _ = port_decode(conf)
         reader_s[mode] = (first, second)
-    want_k5 = {"standard": 0, "device_huffman": 36}
     for mode, n in launches.items():
-        _require(n["mlp_filter"] >= 18 and n["output_stage"] >= 18
-                 and (n["huffman_decode"] >= want_k5[mode]
-                      if want_k5[mode] else n["huffman_decode"] == 0),
+        k5 = (n["huffman_decode"] >= 36 if mode.startswith("device")
+              else n["huffman_decode"] == 0)
+        k234 = ((n["output_stage_narrow"] >= 18 and n["output_stage"] == 0)
+                if modes[mode].narrow_d2h else
+                (n["output_stage"] >= 18 and n["output_stage_narrow"] == 0))
+        _require(n["mlp_filter"] >= 18 and k5 and k234,
                  f"{mode} decode did not run its kernels: {n}")
+        _require(tiers[mode][0] == (16 if modes[mode].narrow_d2h else 0),
+                 f"{mode}: the headline settled at tier {tiers[mode][0]}")
 
     # like for like: every executor from the same assembled stream,
-    # interleaved, best of 3 (host clock around work that ends
-    # synchronised); the stage timers of each mode's best run
+    # interleaved (narrow on, off, in each mode), best of 5 (host clock
+    # around work that ends synchronised); the stage timers of each
+    # mode's best run
     stream, bnd, probe_end = assemble_track_stream(reader.aob,
                                                    reader.track.span)
     threads = modes["standard"].resolved_parse_threads()
     times = {m: [] for m in (*modes, "host")}
-    stages = {}
-    outs = {}
-    for _ in range(3):
+    stages, outs, infos = {}, {}, {}
+    for _ in range(5):
         for who in times:
             global_timer.reset()
+            info = {}
             t = time.perf_counter()
             if who == "host":
                 outs[who] = decode_host_complete(stream, bnd, probe_end,
@@ -791,12 +887,13 @@ def phase_main(layout, cfg, smi: str):
             else:
                 outs[who] = decode_native(stream, bnd, probe_end,
                                           reader.parameters, True,
-                                          modes[who])
+                                          modes[who], info=info)
                 torch.cuda.synchronize()
             dt = time.perf_counter() - t
             if not times[who] or dt < min(times[who]):
                 stages[who] = dict(global_timer.totals)
             times[who].append(dt)
+            infos[who] = info
     want = SECONDS * cfg.sample_rate * cfg.channels * 3
     ref = outs["host"].reshape(-1)
     _require(ref.nbytes == want, f"host-complete gave {ref.nbytes} bytes, "
@@ -809,10 +906,15 @@ def phase_main(layout, cfg, smi: str):
                  f"{mode}: port bytes differ from the host-complete "
                  "reconstruction")
     print(f"[main] read_all_packed == decode_native == host-complete in "
-          f"both modes: {want} bytes identical")
+          f"both modes, narrow readback on and off: {want} bytes identical")
     for mode in modes:
-        print(f"[main] {mode} launches {launches[mode]}")
-    print(f"[main] {smi}; from the assembled stream, best of 3 interleaved, "
+        tier, redone, drained = tiers[mode]
+        print(f"[main] {mode} launches {launches[mode]}; settled tier "
+              f"{tier}, {redone} chunks run again, {drained} bytes drained"
+              f" (decode_native: tier {infos[mode]['tier']}, "
+              f"{infos[mode]['redone']} again, {infos[mode]['drained']} "
+              "bytes)")
+    print(f"[main] {smi}; from the assembled stream, best of 5 interleaved, "
           f"{threads} parse threads:")
     for who in times:
         best = min(times[who])
@@ -827,8 +929,59 @@ def phase_main(layout, cfg, smi: str):
     for mode in modes:
         K1_PATHS[mode] = launches[mode]["mlp_filter"]
     return {"mlp_filter": launches["standard"]["mlp_filter"],
-            "output_stage": launches["standard"]["output_stage"],
+            "output_stage": launches["standard_wide"]["output_stage"],
+            "output_stage_narrow":
+                launches["standard"]["output_stage_narrow"],
             "huffman_decode": launches["device_huffman"]["huffman_decode"]}
+
+
+def phase_tiers(smi: str):
+    """The three-tier streams through the port on the card, narrow
+    readback on and off, in both modes: equal to each other and to
+    host-complete; the tiers settle at 12 (quiet), 16 (mid), 0 (loud)."""
+    import numpy as np
+
+    from dvda_tpu_torch.codecs.mlp.native_engine import (decode_host_complete,
+                                                         decode_native)
+    from dvda_tpu_torch.codecs.params import StreamParameters
+    from dvda_tpu_torch.config import DecodeConfig
+    from dvda_tpu_torch.ops.rematrix import output_stage
+    from dvda_tpu_torch.testutil import (BPS_CODE, RATE_CODE, MlpSynthConfig,
+                                         synth_mlp_stream)
+
+    bnd = np.zeros(0, np.int64)
+    settled = {}
+    for kind, (shifts, tier) in TIER_STREAMS.items():
+        cfg = MlpSynthConfig(channel_assignment=17, substream_count=2,
+                             n_frames=24, seed=11, out_shift_range=shifts)
+        stream = synth_mlp_stream(cfg)
+        params = StreamParameters(BPS_CODE[24], 0xF,
+                                  RATE_CODE[cfg.sample_rate], 0xF, 17)
+        ref = decode_host_complete(stream, bnd, len(stream), params, True)
+        for huffman in (False, True):
+            for narrow in (True, False):
+                info = {}
+                before = output_stage.narrow_launches
+                out = decode_native(stream, bnd, len(stream), params, True,
+                                    DecodeConfig(device="cuda",
+                                                 device_huffman=huffman,
+                                                 narrow_d2h=narrow),
+                                    info=info)
+                label = (f"{kind} {'device_huffman' if huffman else 'standard'}"
+                         f" narrow {'on' if narrow else 'off'}")
+                _require(np.array_equal(out, ref),
+                         f"{label}: bytes differ from host-complete")
+                _require(info["tier"] == (tier if narrow else 0),
+                         f"{label}: settled at tier {info['tier']}")
+                _require((output_stage.narrow_launches > before) == narrow,
+                         f"{label}: K234n launches did not follow the knob")
+                settled[label] = (info["tier"], info["redone"],
+                                  info["drained"])
+    print(f"[tiers] quiet, mid, loud 24-bit streams (24 frames, seed 11), "
+          f"narrow on and off, both modes: == host-complete; {smi}")
+    for label, (tier, redone, drained) in settled.items():
+        print(f"[tiers]   {label}: tier {tier}, {redone} chunks run again, "
+              f"{drained} bytes drained")
 
 
 class _Timed:
@@ -922,15 +1075,18 @@ def phase_cppm(plain, enc_path: str, n_sectors: int, smi: str):
 
     for fn in counters.values():
         fn.launches = 0
+    output_stage.narrow_launches = 0
     got, readers = zip(*(port(t) for t in tracks))
     wav_dir = os.path.join(os.path.dirname(os.path.dirname(enc_path)),
                            "wavs")
     written = disc_to_wavs(plain.path, wav_dir, config=conf)
     launches = {k: fn.launches for k, fn in counters.items()}
+    launches["output_stage_narrow"] = output_stage.narrow_launches
     K1_PATHS["cppm"] = launches["mlp_filter"]
+    # the MLP track reads back narrow (the default): K234n, not K234
     _require(launches["c2_decrypt"] >= 10 and launches["pcm_unpack"] >= 2
              and launches["mlp_filter"] >= 18
-             and launches["output_stage"] >= 18,
+             and launches["output_stage_narrow"] >= 18,
              f"the CPPM disc phase did not run its kernels: {launches}")
 
     # the host path's references on the plaintext disc
@@ -1543,6 +1699,7 @@ def main() -> int:
         kernels = phase_kernels(stream, plain, enc_path)
         launches = phase_main(layout, cfg, smi)
         launches.update(phase_cppm(plain, enc_path, n_sectors, smi))
+        phase_tiers(smi)
         general_layout, general_frames = phase_synth_general(work)
         k6, k6_launches = phase_general(general_layout, general_frames, smi)
         kernels.update(k6)
@@ -1565,6 +1722,7 @@ def main() -> int:
     replaces = {
         "mlp_filter": "dvda_tpu/ops/pallas_filter.py:37",
         "output_stage": "dvda_tpu/codecs/mlp/native_engine.py:282",
+        "output_stage_narrow": "dvda_tpu/codecs/mlp/native_engine.py:330",
         "huffman_decode": "dvda_tpu/ops/huffman_decode.py:82",
         "pcm_unpack": "dvda_tpu/ops/pcm_unpack.py:30",
         "c2_decrypt": "dvda_tpu/ops/c2_decrypt.py:82",
@@ -1572,7 +1730,8 @@ def main() -> int:
         "series_remix": "dvda_tpu/codecs/mlp/native_engine.py:502",
         "frame_remix": "dvda_tpu/ops/rematrix.py:33",
     }
-    sources = {"lane_pack": "general_gather", "series_remix": "general_gather"}
+    sources = {"lane_pack": "general_gather", "series_remix": "general_gather",
+               "output_stage_narrow": "output_stage"}
     record = {"kernels": [
         {"name": k, "route": "cuda",
          "source": f"dvda_tpu_torch/csrc/{sources.get(k, k)}.cu",

@@ -13,6 +13,14 @@ device:
         → K234 noise + bypass + rematrix + output stage + byte pack
           (ops/rematrix.py) ─d2h→ rows of one pinned output buffer
 
+A 24-bit stream is read back narrow by default (``DecodeConfig.
+narrow_d2h``, dvda_tpu's default): the chunk's output stage is K234n,
+which packs the samples at the track's tier (12-bit channel pairs, or
+int16) and appends a flag that says whether they fit.  The drain
+(:class:`_Drain`) settles the tier from the first flag, runs any chunk
+that overflowed its tier again wider, and widens the narrow rows to
+24-bit on the host at the end.
+
 In standard mode the parse decodes the residual values on the host and
 the arenas carry them.  In device-Huffman mode (``DecodeConfig.
 device_huffman``) the parse walks the residual bits length-only
@@ -35,6 +43,7 @@ stream when it is uniform (:func:`_try_uniform`), else the general path
 
 from __future__ import annotations
 
+import collections
 import sys
 
 import numpy as np
@@ -293,16 +302,27 @@ def _add_huffman_tables(b, s_idx, sub, blk_base, blk0, blk1, S0, NB0,
             b.add_host(f"s{s_idx}_{name}", full)
 
 
+def _narrow_tier0(pack_bits: int, out_ch: int, cfg) -> int:
+    """The narrow readback's first tier for a stream (dvda_tpu's
+    ``_narrow_tier0``, :907-916): 24-bit streams start at the 12-bit tier
+    when the channel count is even, else at int16; 0 = narrow off."""
+    if pack_bits != 24 or not cfg.resolved_narrow_d2h():
+        return 0
+    return 12 if out_ch % 2 == 0 else 16
+
+
 def _build_chunk_arenas(parse, subs_info, c0, c1, CHUNK, period, L0,
                         out_ch, pack_bits, f_base, t_base, mat_mm,
-                        pin=False, huffman=False):
+                        pin=False, huffman=False, narrow=0):
     """Arenas + spec for section-relative chains [c0, c1) — dvda_tpu's
     ``_dispatch_chunk_native`` + ``_finish_dispatch``, in standard mode or,
     with ``huffman``, in device-Huffman mode (decode tables instead of
     residuals and bypass bits).  ``subs_info`` carries (sub, block_base,
     S0, NB0[, suboff]) per substream, ``suboff`` being the section's first
     flat ``sub_bitpos`` index (device Huffman); ``f_base``/``t_base`` are
-    the section's absolute frame and sample offsets."""
+    the section's absolute frame and sample offsets.  ``narrow`` (12 or
+    16) marks a 24-bit chunk for the narrow readback at that tier, as
+    dvda_tpu's ``_finish_dispatch`` does (:1700-1708)."""
     b = _NativeArenaBuilder(parse)
     fpc = period // L0
     f0 = f_base + c0 * fpc
@@ -362,6 +382,8 @@ def _build_chunk_arenas(parse, subs_info, c0, c1, CHUNK, period, L0,
     arenas, spec = b.finish(pin=pin, full=c1 - c0 == CHUNK)
     if pack_bits:
         spec = spec + ((f"__pack{pack_bits}__", 0, 0, (), "flag"),)
+        if narrow and pack_bits == 24:
+            spec = spec + (("__narrow__", 0, narrow, (), "flag"),)
     return arenas, spec
 
 
@@ -442,13 +464,24 @@ def uniform_arena_pipeline(a4, a2, a1, spec, words=None):
     native_engine.py:82-372) on the arenas' device.  ``words`` is the
     track's stream (:func:`_shared_words`), which device-Huffman arenas
     need.  Returns uint8 ``[T_pad, C_out*nbytes]`` WAV-ordered bytes for
-    ``__pack24__``/``__pack16__`` specs, else int32 ``[T_pad, C_out]``."""
+    ``__pack24__``/``__pack16__`` specs, else int32 ``[T_pad, C_out]``;
+    with ``__pack24__`` and ``__narrow__`` the narrow rows at its tier and
+    8 flag rows (K234n: uint8 ``[T_pad + 8, C_out*2]`` at tier 16,
+    ``[T_pad + 8, C_out/2*3]`` at tier 12)."""
+    return _chunk_program(a4, a2, a1, spec, words)[0]
+
+
+def _chunk_program(a4, a2, a1, spec, words=None):
+    """(output, tier, redo) of :func:`uniform_arena_pipeline`: the tier its
+    output stage ran at (0: wide) and ``redo(tier)``, which runs the output
+    stage again on the chunk's filter output at another tier (0: wide).
+    dvda_tpu's ``redo`` reruns the whole chunk program from the arenas;
+    here K1 (and K5) run once a chunk, and a redo is one K234 launch."""
     arrs, flags = unpack_spec(a4, a2, a1, spec)
-    other = sorted(k for k in flags if k in ("__narrow__", "__pallas__"))
-    if other:
+    if "__pallas__" in flags:
         raise NotImplementedError(
-            f"chunk spec carries {other}: narrow readback (ROADMAP item 11)"
-            " and the Pallas route are not ported")
+            "chunk spec carries __pallas__: the Pallas route is not ported "
+            "(ROADMAP item 12)")
     dev = a4.device
     n_sub = max(int(name[1]) for name in arrs if name.startswith("s")) + 1
     byp = arrs.get("byp")
@@ -517,78 +550,196 @@ def uniform_arena_pipeline(a4, a2, a1, spec, words=None):
     series = torch.cat([o.reshape(o.shape[0] * o.shape[1], -1)
                         for o in outs], dim=1)
     nbytes = 3 if "__pack24__" in flags else 2 if "__pack16__" in flags else 0
-    return output_stage(
-        series, arrs["frame_seed"], arrs["frame_nshift"], byp,
-        arrs["mat_coeff"], arrs["mat_noise"], arrs["mat_out"],
-        arrs["mat_active"], arrs["mat_quant"], arrs["out_shift"],
-        arrs["wave_perm"], chains=packed[0][8], n_mats=flags.get("mat_mm", 6),
-        nbytes=nbytes)
+    tier = (flags["__narrow__"] or 16) if (nbytes == 3
+                                           and "__narrow__" in flags) else 0
+    stage = (series, arrs["frame_seed"], arrs["frame_nshift"], byp,
+             arrs["mat_coeff"], arrs["mat_noise"], arrs["mat_out"],
+             arrs["mat_active"], arrs["mat_quant"], arrs["out_shift"],
+             arrs["wave_perm"])
+    kw = dict(chains=packed[0][8], n_mats=flags.get("mat_mm", 6),
+              nbytes=nbytes)
+
+    def redo(retier=0):
+        return output_stage(*stage, **kw, tier=retier)
+
+    return redo(tier), tier, redo
 
 
 # ------------------------------------------------------------------ drain
 
 class _Drain:
-    """Chunk outputs → rows of one pinned host buffer.
+    """Chunk outputs → one pinned host buffer, and the narrow tiers.
 
     Each pushed chunk's valid rows are copied device-to-host with
     ``non_blocking=True`` on a side CUDA stream, which waits on an event
     recorded on the compute stream after the chunk's kernels; parse and
-    dispatch of later chunks run on while the copies drain.
-    :meth:`finish` synchronises once.  The buffer is sized from an
-    estimate of the track's samples; if pushes outrun it, it grows (wait
-    for the copies in flight, then move the filled rows).  On the CPU the
-    copies are plain synchronous copies."""
+    dispatch of later chunks run on while the copies drain.  On the CPU
+    the copies are plain synchronous copies.  The buffer holds bytes,
+    sized from an estimate of the track's samples, and grows when pushes
+    outrun it (wait for the copies in flight, then move the filled bytes).
 
-    def __init__(self, device: torch.device, width: int, dtype, capacity: int):
+    Narrow tiers (dvda_tpu's ``_Drainer`` and ``_finish_uniform``): a
+    chunk pushed at tier 12 or 16 brings its ``redo``; its flag byte is
+    copied beside its rows, and an event recorded after both.  Flags are
+    read in push order as their events complete (:meth:`poll`, after each
+    push, never waiting).  The first flag read settles the track's
+    :attr:`tier`: kept if the chunk fits, 16 if a 12-bit chunk fits int16
+    (flag bit 1), else 0 (wide).  A chunk whose own flag says it overflowed
+    its tier is run again (``redo``) at 16 where bit 1 is set, else wide,
+    and pushed again in its place.  :meth:`throttle` waits for the first
+    flag once 3 narrow chunks were pushed before the tier settled.
+    :meth:`finish` reads every flag left, runs those redos, and widens the
+    narrow rows into 24-bit rows with the host library."""
+
+    def __init__(self, device: torch.device, row_bytes: int, dtype,
+                 capacity: int, tier: int = 0):
         self._dev = device
         self._cuda = device.type == "cuda"
-        self._width, self._dtype = width, dtype
-        self._rows = 0
-        self._buf = self._alloc(max(1, int(capacity)))
+        self._row, self._dtype = row_bytes, dtype
+        self._used = 0
+        self._buf = self._alloc(max(1, int(capacity)) * row_bytes)
         self._side = torch.cuda.Stream(device) if self._cuda else None
+        self._chunks = []   # per chunk: [rows, tier, byte offset, bytes]
+        self._open = collections.deque()  # narrow chunks' unread flags
+        self._unsettled = 0  # narrow chunks pushed before the tier settled
+        #: the track's tier: 12, 16, or 0 (wide)
+        self.tier = tier
+        self.settled = not tier
+        #: chunks run again at a wider tier, and bytes copied to the host
+        self.redone = 0
+        self.drained = 0
 
-    def _alloc(self, rows: int) -> torch.Tensor:
-        return torch.empty((rows, self._width), dtype=self._dtype,
-                           pin_memory=self._cuda)
+    def _alloc(self, nbytes: int) -> torch.Tensor:
+        return torch.empty(nbytes, dtype=torch.uint8, pin_memory=self._cuda)
 
-    def _grow(self, need: int) -> None:
+    def _reserve(self, nbytes: int) -> int:
+        """The byte offset of ``nbytes`` new bytes at the end."""
+        need = self._used + nbytes
+        if need > self._buf.shape[0]:
+            if self._cuda:
+                self._side.synchronize()  # copies in flight: the old buffer
+            new = self._alloc(max(need, 2 * self._buf.shape[0]))
+            new[: self._used].copy_(self._buf[: self._used])
+            self._buf = new
+        off, self._used = self._used, need
+        return off
+
+    def push(self, dev_out: torch.Tensor, n: int, tier: int = 0,
+             redo=None, _idx: int | None = None) -> None:
+        """Queue the copy of ``dev_out[:n]``: rows of the output, or at
+        ``tier`` 12 or 16 K234n's narrow rows, whose flag sits in the last
+        row; ``redo(tier)`` gives the chunk's output at another tier."""
+        if _idx is None:
+            _idx = len(self._chunks)
+            self._chunks.append(None)
+        nb = n * dev_out.shape[1] * dev_out.element_size()
+        off = self._reserve(nb + (1 if tier else 0))
+        src = dev_out[:n].reshape(-1).view(torch.uint8)
+        dst = self._buf[off : off + nb]
+        flag = self._buf[off + nb : off + nb + 1] if tier else None
         if self._cuda:
-            self._side.synchronize()  # copies in flight target the old rows
-        new = self._alloc(max(need, 2 * self._buf.shape[0]))
-        new[: self._rows].copy_(self._buf[: self._rows])
-        self._buf = new
-
-    def push(self, dev_out: torch.Tensor, n: int) -> None:
-        """Queue the copy of ``dev_out[:n]`` into the next ``n`` rows."""
-        if self._rows + n > self._buf.shape[0]:
-            self._grow(self._rows + n)
-        dst = self._buf[self._rows : self._rows + n]
-        if self._cuda:
-            done = torch.cuda.Event()
-            done.record(torch.cuda.current_stream(self._dev))
-            self._side.wait_event(done)
+            ready = torch.cuda.Event()
+            ready.record(torch.cuda.current_stream(self._dev))
+            self._side.wait_event(ready)
             with torch.cuda.stream(self._side):
-                dst.copy_(dev_out[:n], non_blocking=True)
+                dst.copy_(src, non_blocking=True)
+                if tier:
+                    flag.copy_(dev_out[-1, -1:], non_blocking=True)
             dev_out.record_stream(self._side)
         else:
-            dst.copy_(dev_out[:n])
-        self._rows += n
+            dst.copy_(src)
+            if tier:
+                flag.copy_(dev_out[-1, -1:])
+        self._chunks[_idx] = [n, tier, off, nb]
+        self.drained += nb + (1 if tier else 0)
+        if tier:
+            if not self.settled:
+                self._unsettled += 1
+            self._open.append((_idx, tier, off + nb, self._landed(), redo))
+        self.poll()
+
+    def _landed(self):
+        """An event that completes when the copies queued so far have
+        landed (None on the CPU, where they have)."""
+        if not self._cuda:
+            return None
+        done = torch.cuda.Event()
+        done.record(self._side)
+        return done
+
+    def poll(self, block: bool = False) -> None:
+        """Read the flags whose copies have landed, in push order; with
+        ``block``, wait for the first."""
+        while self._open:
+            idx, tier, at, done, redo = self._open[0]
+            if done is not None and not done.query():
+                if not block:
+                    return
+                done.synchronize()
+            block = False
+            self._open.popleft()
+            self._resolve(idx, tier, int(self._buf[at]), redo)
+
+    def _resolve(self, idx: int, tier: int, flag: int, redo) -> None:
+        """Act on chunk ``idx``'s flag (see the class docstring)."""
+        retier = 16 if tier == 12 and flag & 2 else 0
+        if not self.settled:
+            self.settled = True
+            if not flag & 1:
+                self.tier = retier
+        if flag & 1:
+            return
+        self.redone += 1
+        self.push(redo(retier), self._chunks[idx][0], retier,
+                  redo if retier else None, _idx=idx)
+
+    def throttle(self) -> None:
+        """Wait for the first flag once 3 narrow chunks were pushed before
+        the tier settled: bounds the chunks run at a wrong tier."""
+        if not self.settled and self._unsettled >= 3:
+            self.poll(block=True)
 
     def discard(self) -> None:
         """Drop what was pushed: wait for the copies in flight."""
+        self._open.clear()
         if self._cuda:
             self._side.synchronize()
 
     def finish(self, T: int) -> np.ndarray:
         """The first ``T`` rows as a numpy array (rows never pushed are
-        zero), after one synchronisation with the side stream."""
+        zero): every flag read and its redo run first, then one
+        synchronisation with the side stream; narrow rows widened."""
+        while self._open:
+            self.poll(block=True)
         if self._cuda:
             self._side.synchronize()
-        if T > self._buf.shape[0]:
-            self._grow(T)
-        if self._rows < T:
-            self._buf[self._rows : T].zero_()
-        return self._buf[:T].numpy()
+        want = T * self._row
+        ends = np.cumsum([0] + [c[3] for c in self._chunks])
+        if all(c[1] == 0 and c[2] == e for c, e in zip(self._chunks, ends)):
+            # the rows lie in order from byte 0: hand out the buffer itself
+            if want > self._buf.shape[0]:
+                self._reserve(want - self._used)
+            if self._used < want:
+                self._buf[self._used : want].zero_()
+            return self._buf[:want].view(self._dtype).view(T, -1).numpy()
+        with global_timer.stage("mlp/widen"):
+            out = np.zeros(want, np.uint8)
+            src = self._buf.numpy()
+            row = 0
+            for n, tier, off, nb in self._chunks:
+                take = min(n, T - row)
+                if take <= 0:
+                    break
+                dst = out[row * self._row : (row + take) * self._row]
+                part = src[off : off + take * (nb // n)]
+                if not tier:
+                    dst[:] = part
+                elif not (host.widen24 if tier == 16 else host.widen12)(
+                        part, dst):
+                    raise RuntimeError("the host library's widen is "
+                                       "unavailable")
+                row += take
+        return out.reshape(T, -1)  # only 24-bit bytes are read back narrow
 
 
 def _unpack_raw(raw, T, out_ch, pack_bits, want_packed):
@@ -794,6 +945,7 @@ def _pipelined(st, inc, stream, boundaries, probe_end, parameters,
         return _ABANDON  # empty or degenerate: the whole-parse path
 
     words = _shared_words(stream, device) if huffman else None
+    tier0 = _narrow_tier0(pack_bits, out_ch, cfg)
     drain = None
     ci = 0
     mat_mm = 0                               # running rematrix slot bound
@@ -836,6 +988,14 @@ def _pipelined(st, inc, stream, boundaries, probe_end, parameters,
             if n_ok == 0:
                 break  # geometry broke at c0: close the section here
             c1 = c0 + n_ok
+            if drain is None:
+                # size the output from the parse so far: samples per
+                # stream byte, plus one chunk of slack
+                per_byte = v.T / max(1, int(v.frame_end[v.F - 1]))
+                drain = st["drain"] = _drain_for(
+                    device, out_ch, pack_bits,
+                    int(per_byte * len(stream) * 1.125) + CHUNK * period,
+                    tier0)
             with global_timer.stage("mlp/arena-build"):
                 subs_info = [(v.sub[s], blk0s[s], S0, NB0, suboffs[s])
                              for s, S0, NB0 in struct]
@@ -843,18 +1003,13 @@ def _pipelined(st, inc, stream, boundaries, probe_end, parameters,
                     v.mat_active[f0 + c0 * fpc : f0 + c1 * fpc]))
                 (a4, a2, a1), spec = _build_chunk_arenas(
                     v, subs_info, c0, c1, CHUNK, period, L0, out_ch,
-                    pack_bits, f0, t_base, mat_mm, pin=cuda, huffman=huffman)
+                    pack_bits, f0, t_base, mat_mm, pin=cuda, huffman=huffman,
+                    narrow=drain.tier)
             with global_timer.stage("mlp/chunk-launch"):
-                out = uniform_arena_pipeline(
+                out, tier, redo = _chunk_program(
                     *arenas_to_device(a4, a2, a1, spec, device), spec, words)
-                if drain is None:
-                    # size the output from the parse so far: samples per
-                    # stream byte, plus one chunk of slack
-                    per_byte = v.T / max(1, int(v.frame_end[v.F - 1]))
-                    drain = st["drain"] = _Drain(
-                        device, out.shape[1], out.dtype,
-                        int(per_byte * len(stream) * 1.125) + CHUNK * period)
-                drain.push(out, n_ok * period)
+                drain.push(out, n_ok * period, tier, redo)
+            drain.throttle()
             ci += 1
             c0 = c1
             if c1 < want:  # verification truncated: geometry broke
@@ -879,7 +1034,24 @@ def _pipelined(st, inc, stream, boundaries, probe_end, parameters,
     T = int(v.frame_len[:F].sum())
     with global_timer.stage("mlp/device+d2h"):
         raw = drain.finish(T)
+    _narrow_info(info, drain)
     return _unpack_raw(raw, T, out_ch, pack_bits, want_packed)
+
+
+def _drain_for(device, out_ch: int, pack_bits: int, capacity: int,
+               tier: int) -> _Drain:
+    """The drain of a stream's chunks: rows of ``out_ch`` samples of
+    ``pack_bits`` bits as bytes (int32 when 0), narrow from ``tier``."""
+    if pack_bits:
+        return _Drain(device, out_ch * pack_bits // 8, torch.uint8, capacity,
+                      tier)
+    return _Drain(device, out_ch * 4, torch.int32, capacity)
+
+
+def _narrow_info(info: dict, drain: _Drain) -> None:
+    """The narrow readback's record of a decode: the tier the track
+    settled at (0: wide), the chunks run again wider, the bytes drained."""
+    info.update(tier=drain.tier, redone=drain.redone, drained=drain.drained)
 
 
 def _decode_parsed(parse, boundaries, probe_end, parameters, want_packed,
@@ -973,7 +1145,8 @@ def _try_uniform(parse, F, frame_len, T, out_ch, bits_per_sample,
     cuda = device.type == "cuda"
     fpc = period // L0
     mat_mm = 0
-    drain = None
+    drain = _drain_for(device, out_ch, pack_bits, n_chains * period,
+                       _narrow_tier0(pack_bits, out_ch, cfg))
     ci = 0
     for ci, c0 in enumerate(range(0, n_chains, CHUNK), 1):
         c1 = min(c0 + CHUNK, n_chains)
@@ -982,17 +1155,16 @@ def _try_uniform(parse, F, frame_len, T, out_ch, bits_per_sample,
                 parse.mat_active[c0 * fpc : c1 * fpc]))
             (a4, a2, a1), spec = _build_chunk_arenas(
                 parse, subs_info, c0, c1, CHUNK, period, L0, out_ch,
-                pack_bits, 0, 0, mat_mm, pin=cuda)
+                pack_bits, 0, 0, mat_mm, pin=cuda, narrow=drain.tier)
         with global_timer.stage("mlp/chunk-launch"):
-            out = uniform_arena_pipeline(
+            out, tier, redo = _chunk_program(
                 *arenas_to_device(a4, a2, a1, spec, device), spec)
-            if drain is None:
-                drain = _Drain(device, out.shape[1], out.dtype,
-                               n_chains * period)
-            drain.push(out, (c1 - c0) * period)
+            drain.push(out, (c1 - c0) * period, tier, redo)
+        drain.throttle()
     info["chunks"] = ci
     with global_timer.stage("mlp/device+d2h"):
         raw = drain.finish(T)
+    _narrow_info(info, drain)
     return _unpack_raw(raw, T, out_ch, pack_bits, want_packed)
 
 

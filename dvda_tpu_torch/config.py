@@ -20,6 +20,10 @@
                                                K5 decodes them on the device
     ``DVDA_TPU_TORCH_HUFFMAN_SPLIT=k``         device Huffman: one K5 lane per
                                                k samples (0 = one per block)
+    ``DVDA_TPU_TORCH_NARROW_D2H=1|0``          24-bit MLP: read chunks back at
+                                               the narrow tiers (12/16-bit,
+                                               kernel K234n) and widen on the
+                                               host; unset = on
     ``DVDA_TPU_TORCH_LOG=<level>``             level of the ``dvda_tpu_torch``
                                                logger (utils/log.configure)
     ``DVDA_TPU_TORCH_DISABLE_NATIVE_DEMUX=1``  PCM: the Python packet walk
@@ -50,6 +54,17 @@ from dataclasses import dataclass
 import torch
 
 __all__ = ["DecodeConfig", "default_config"]
+
+
+def _env_tristate(name: str) -> bool | None:
+    """``1`` / ``0`` / unset (or empty) → True / False / None; any other
+    value raises, as dvda_tpu's ``_env_tristate`` does."""
+    raw = os.environ.get(name, "")
+    if raw in ("1", ""):
+        return True if raw == "1" else None
+    if raw == "0":
+        return False
+    raise ValueError(f"{name}={raw!r}: expected '1', '0', or unset (auto)")
 
 
 @dataclass
@@ -85,6 +100,15 @@ class DecodeConfig:
     decrypt: bool = True
     #: CPPM: keep the CCI copy-control bytes instead of zeroing them
     preserve_cci: bool = False
+    #: narrow readback of 24-bit MLP chunks (dvda_tpu's ``narrow_d2h``):
+    #: K234n returns each chunk at the track's tier (12-bit channel pairs
+    #: or int16) with an on-device fits flag, chunks that overflow their
+    #: tier are run again wider, and the host widens to 24-bit.  Lossless
+    #: either way.  None = on, as in dvda_tpu
+    narrow_d2h: bool | None = None
+
+    def resolved_narrow_d2h(self) -> bool:
+        return True if self.narrow_d2h is None else self.narrow_d2h
 
     def resolved_parse_threads(self) -> int:
         if self.parse_threads > 0:
@@ -130,6 +154,7 @@ class DecodeConfig:
                                              "0")),
             use_native_demux=os.environ.get(
                 "DVDA_TPU_TORCH_DISABLE_NATIVE_DEMUX", "0") != "1",
+            narrow_d2h=_env_tristate("DVDA_TPU_TORCH_NARROW_D2H"),
         )
 
 

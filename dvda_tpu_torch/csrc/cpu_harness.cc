@@ -195,17 +195,19 @@ extern "C" void cpu_mlp_filter(
   }
 }
 
-extern "C" void cpu_output_stage(
+// per (chain, frame): the tables, then the LFSR stepped over the frame's
+// samples, each sample's row straight into the output in ``form``;
+// returns the OR of the samples' misfit bits
+static uint32_t output_stage_chunk(
     const int32_t* series, const int32_t* frame_seed,
     const int8_t* frame_nshift, const int8_t* byp, const int16_t* mat_coeff,
     const int16_t* mat_noise, const int8_t* mat_out, const int8_t* mat_active,
     const int8_t* mat_quant, const int8_t* out_shift, const int8_t* wave_perm,
     uint8_t* out, int Bc, int fpc, int L0, int C_tot, int C_out, int n_mats,
-    int nbytes) {
-  // per (chain, frame): the tables, then the LFSR stepped over the
-  // frame's samples, each sample's words straight into its output row
-  const int nb = nbytes ? nbytes : 4;
+    int form) {
+  const int row = output_stage_row_bytes(C_out, form);
   const int64_t period = (int64_t)fpc * L0;
+  uint32_t misfit = 0;
   for (int b = 0; b < Bc; ++b)
     for (int f = 0; f < fpc; ++f) {
       const int64_t fi = (int64_t)b * fpc + f;
@@ -220,12 +222,45 @@ extern "C" void cpu_output_stage(
         const int64_t t = (int64_t)f * L0 + i;
         int32_t ch[8];
         output_stage_channels(series, t, Bc, C_tot, b, ch);
-        output_stage_sample(fr, seed, n_mats, ch,
-                            (uint8_t)byp[(int64_t)b * period + t], wave_perm,
-                            C_out, nb, out + (b * period + t) * C_out * nb);
+        misfit |= output_stage_sample(
+            fr, seed, n_mats, ch, (uint8_t)byp[(int64_t)b * period + t],
+            wave_perm, C_out, form, out + (b * period + t) * row);
         seed = dvda_lfsr_step(seed);
       }
     }
+  return misfit;
+}
+
+extern "C" void cpu_output_stage(
+    const int32_t* series, const int32_t* frame_seed,
+    const int8_t* frame_nshift, const int8_t* byp, const int16_t* mat_coeff,
+    const int16_t* mat_noise, const int8_t* mat_out, const int8_t* mat_active,
+    const int8_t* mat_quant, const int8_t* out_shift, const int8_t* wave_perm,
+    uint8_t* out, int Bc, int fpc, int L0, int C_tot, int C_out, int n_mats,
+    int nbytes) {
+  output_stage_chunk(series, frame_seed, frame_nshift, byp, mat_coeff,
+                     mat_noise, mat_out, mat_active, mat_quant, out_shift,
+                     wave_perm, out, Bc, fpc, L0, C_tot, C_out, n_mats,
+                     nbytes ? nbytes : 4);
+}
+
+// K234n: the narrow rows of ``tier`` (12 or 16), then the 8 flag rows
+extern "C" void cpu_output_stage_narrow(
+    const int32_t* series, const int32_t* frame_seed,
+    const int8_t* frame_nshift, const int8_t* byp, const int16_t* mat_coeff,
+    const int16_t* mat_noise, const int8_t* mat_out, const int8_t* mat_active,
+    const int8_t* mat_quant, const int8_t* out_shift, const int8_t* wave_perm,
+    uint8_t* out, int Bc, int fpc, int L0, int C_tot, int C_out, int n_mats,
+    int tier) {
+  const int form = tier == 16 ? 2 : kNarrow12;
+  const uint32_t misfit = output_stage_chunk(
+      series, frame_seed, frame_nshift, byp, mat_coeff, mat_noise, mat_out,
+      mat_active, mat_quant, out_shift, wave_perm, out, Bc, fpc, L0, C_tot,
+      C_out, n_mats, form);
+  const int64_t rows = (int64_t)Bc * fpc * L0 * output_stage_row_bytes(C_out,
+                                                                       form);
+  memset(out + rows, output_stage_narrow_flag(misfit, tier),
+         8 * output_stage_row_bytes(C_out, form));
 }
 
 extern "C" void cpu_pcm_unpack(const uint8_t* chunks, int64_t n, int csize,

@@ -17,9 +17,12 @@
 //   out_shift   int8  [Bc*fpc, 8]       wave_perm int8 [C_out]
 // Frame arrays are chain-major (frame index b*fpc + f), as the arena
 // builder lays them out.  The output row of (chain b, frame f, sample i) is
-// b*period + f*L0 + i: WAV time order.  nbytes 3 or 2 writes little-endian
-// 24/16-bit samples ([T_pad, C_out*nbytes] bytes); nbytes 0 writes int32
-// [T_pad, C_out].
+// b*period + f*L0 + i: WAV time order.  The output form (``form``) is 3
+// or 2 for little-endian 24/16-bit samples ([T_pad, C_out*form] bytes), 4
+// for int32 [T_pad, C_out], or kNarrow12 for the 12-bit tier of the narrow
+// readback: channel pairs (c0, c1) in 3 bytes ([T_pad, C_out/2*3], even
+// C_out).  The narrow 16-bit tier is form 2.  Every sample also reports
+// which narrow tiers its values miss (output_stage_misfit).
 //
 // Semantics are dvda_tpu.ops.rematrix.rematrix_frames_tl followed by
 // apply_output_stage_tl and the byte pack of the JAX chunk program.  The
@@ -159,22 +162,63 @@ DVDA_HD void output_stage_channels(const int32_t* __restrict__ series,
   for (int c = 0; c < 8; ++c) ch[c] = c < C_tot ? row[(int64_t)c * Bc] : 0;
 }
 
+// The narrow readback's 12-bit tier as an output form (the others are
+// their byte counts: 2, 3, and 4 for int32).
+constexpr int kNarrow12 = 12;
+
+// Output bytes of one sample row in ``form``.
+DVDA_HD int output_stage_row_bytes(int C_out, int form) {
+  return form == kNarrow12 ? C_out / 2 * 3 : C_out * form;
+}
+
+// The narrow tiers a staged value misses: bit 0 when it lies outside
+// 12-bit two's complement [-2048, 2048), bit 1 outside int16.
+DVDA_HD uint32_t output_stage_misfit(int32_t v) {
+  return (uint32_t)(v < -2048 || v >= 2048) |
+         (uint32_t)(v < -32768 || v >= 32768) << 1;
+}
+
+// The narrow flag byte from the OR of every sample's misfit bits
+// (dvda_tpu native_engine.py:346-363): at tier 12, fits12 + 2 * fits16;
+// at tier 16, fits16.
+DVDA_HD uint8_t output_stage_narrow_flag(uint32_t misfit, int tier) {
+  const uint32_t fits12 = !(misfit & 1u), fits16 = !(misfit & 2u);
+  return (uint8_t)(tier == kNarrow12 ? fits12 + 2 * fits16 : fits16);
+}
+
 // One sample of frame fr: noise from the LFSR state ``seed`` it starts
 // at, the first n_mats matrix slots (fr's tables are read where they lie,
 // so n_mats can be a runtime count without a stack copy), the output shift
-// and the WAVE permutation; C_out little-endian words of nb bytes at dst.
-DVDA_HD void output_stage_sample(const DvdaOutFrame& fr, uint32_t seed,
-                                 int n_mats, int32_t ch[8], uint32_t bits,
-                                 const int8_t* wave_perm, int C_out, int nb,
-                                 uint8_t* dst) {
+// and the WAVE permutation; its row of C_out values in ``form`` at dst.
+// Returns the narrow tiers its values miss (output_stage_misfit, ORed).
+DVDA_HD uint32_t output_stage_sample(const DvdaOutFrame& fr, uint32_t seed,
+                                     int n_mats, int32_t ch[8], uint32_t bits,
+                                     const int8_t* wave_perm, int C_out,
+                                     int form, uint8_t* dst) {
   // noise0 = int8(seed >> 15) << nshift, noise1 = int8(seed >> 7) << ...
   const int32_t n0 = (int32_t)((uint32_t)(int32_t)(int8_t)(uint8_t)(
                                    seed >> 15) << fr.nshift);
   const int32_t n1 = (int32_t)((uint32_t)(int32_t)(int8_t)(uint8_t)(
                                    seed >> 7) << fr.nshift);
   dvda_rematrix_sample(fr.mats, n_mats, ch, n0, n1, DvdaBypassBits{bits});
+  uint32_t misfit = 0;
+  if (form == kNarrow12) {
+    // pair j: c0 & 0xFF, (c0 >> 8 & 0xF) | (c1 & 0xF) << 4, c1 >> 4 & 0xFF
+    for (int j = 0; j < C_out / 2; ++j) {
+      const uint32_t c0 = dvda_output_pick(ch, fr.osh, wave_perm[2 * j]);
+      const uint32_t c1 = dvda_output_pick(ch, fr.osh, wave_perm[2 * j + 1]);
+      misfit |= output_stage_misfit((int32_t)c0) |
+                output_stage_misfit((int32_t)c1);
+      dst[3 * j] = (uint8_t)c0;
+      dst[3 * j + 1] = (uint8_t)(((c0 >> 8) & 0xFu) | ((c1 & 0xFu) << 4));
+      dst[3 * j + 2] = (uint8_t)(c1 >> 4);
+    }
+    return misfit;
+  }
   for (int k = 0; k < C_out; ++k) {
     const uint32_t v = dvda_output_pick(ch, fr.osh, wave_perm[k]);
-    for (int j = 0; j < nb; ++j) dst[k * nb + j] = (uint8_t)(v >> (8 * j));
+    misfit |= output_stage_misfit((int32_t)v);
+    for (int j = 0; j < form; ++j) dst[k * form + j] = (uint8_t)(v >> (8 * j));
   }
+  return misfit;
 }

@@ -135,6 +135,8 @@ def kernel_library() -> ctypes.CDLL:
     lib.dvda_mlp_filter.argtypes = [p] * 13 + [i, i, i, p]
     lib.dvda_output_stage.restype = i
     lib.dvda_output_stage.argtypes = [p] * 12 + [i] * 7 + [p]
+    lib.dvda_output_stage_narrow.restype = i
+    lib.dvda_output_stage_narrow.argtypes = [p] * 13 + [i] * 7 + [p]
     lib.dvda_pcm_unpack.restype = i
     lib.dvda_pcm_unpack.argtypes = [p, i64, i, i, i, i, p, p, p]
     _lib = lib

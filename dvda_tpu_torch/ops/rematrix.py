@@ -16,6 +16,12 @@ five stages:
     (mlp.c:514-533);
   * the little-endian byte pack into WAV time order (:319-328, :370-372).
 
+With ``tier`` 12 or 16 the same call is K234n, the narrow readback of a
+24-bit chunk (:330-369): the 16-bit tier (int16 little-endian) or the
+12-bit tier (channel pairs in 3 bytes), then 8 rows whose every byte is
+the chunk's fits flag.  Its launches count apart, in
+``output_stage.narrow_launches``.
+
 Its inputs are the chunk's arena arrays as the arena builder lays them out
 (frame arrays chain-major, narrow dtypes); see :func:`output_stage`.
 
@@ -40,7 +46,8 @@ import torch
 
 from ..kernels.launch import check, current_stream, on_cuda, raise_on_error
 
-__all__ = ["output_stage", "output_stage_reference", "frame_remix",
+__all__ = ["output_stage", "output_stage_reference", "narrow_pack",
+           "frame_remix",
            "rematrix_frames", "rematrix_frames_reference",
            "apply_output_stage", "apply_output_stage_reference",
            "MAX_MATRICES"]
@@ -74,13 +81,53 @@ def _geometry(series, mat_coeff, wave_perm, chains):
     return Bc, fpc, period // fpc, C_tot, C_out
 
 
+def narrow_pack(rows: torch.Tensor, tier: int) -> torch.Tensor:
+    """The narrow readback of staged samples ``rows`` (int64 ``[T, C_out]``
+    holding int32 values), as dvda_tpu's chunk program computes it
+    (native_engine.py:346-369): the fits flags from the minimum and
+    maximum over every row, the 16-bit tier's low two bytes of each value or
+    the 12-bit tier's channel pairs in 3 bytes, then 8 rows of the flag.
+    Returns uint8 ``[T + 8, C_out*2]`` (tier 16) or ``[T + 8, C_out/2*3]``
+    (tier 12)."""
+    lo, hi = rows.min(), rows.max()
+    fits16 = int(bool(lo >= -(1 << 15)) and bool(hi < (1 << 15)))
+    if tier == 12:
+        fits12 = int(bool(lo >= -(1 << 11)) and bool(hi < (1 << 11)))
+        c0, c1 = rows[:, 0::2], rows[:, 1::2]
+        pk = torch.stack([c0 & 0xFF, ((c0 >> 8) & 0xF) | ((c1 & 0xF) << 4),
+                          (c1 >> 4) & 0xFF], 2)
+        flag = fits12 + 2 * fits16
+    else:
+        pk = torch.stack([rows & 0xFF, (rows >> 8) & 0xFF], 2)
+        flag = fits16
+    narrow = pk.to(torch.uint8).reshape(rows.shape[0], -1)
+    return torch.cat([narrow, torch.full((8, narrow.shape[1]), flag,
+                                         dtype=torch.uint8,
+                                         device=rows.device)])
+
+
+def _check_form(nbytes: int, tier: int, C_out: int) -> None:
+    if nbytes not in (0, 2, 3):
+        raise ValueError(f"nbytes must be 0, 2 or 3, got {nbytes}")
+    if tier not in (0, 12, 16):
+        raise ValueError(f"tier must be 0, 12 or 16, got {tier}")
+    if tier and nbytes != 3:
+        raise ValueError("the narrow tiers read back 24-bit chunks "
+                         f"(nbytes 3), got nbytes {nbytes}")
+    if tier == 12 and C_out % 2:
+        raise ValueError(f"the 12-bit tier packs channel pairs: C_out "
+                         f"{C_out} is odd")
+
+
 def output_stage_reference(series, frame_seed, frame_nshift, byp, mat_coeff,
                            mat_noise, mat_out, mat_active, mat_quant,
                            out_shift, wave_perm, *, chains: int, n_mats: int,
-                           nbytes: int):
+                           nbytes: int, tier: int = 0):
     """Plain PyTorch version of :func:`output_stage`: vectorised int64 ops
     over frames, samples and chains, the matrices in a loop and the LFSR
-    stepped serially over the frame's samples."""
+    stepped serially over the frame's samples; with ``tier``,
+    :func:`narrow_pack` of the staged samples."""
+    _check_form(nbytes, tier, wave_perm.shape[0])
     Bc, fpc, L0, C_tot, C_out = _geometry(series, mat_coeff, wave_perm,
                                           chains)
     period = fpc * L0
@@ -125,6 +172,8 @@ def output_stage_reference(series, frame_seed, frame_nshift, byp, mat_coeff,
     staged = _wrap32(ch << tlf(out_shift)[:, None])          # [fpc,L0,8,Bc]
     staged = staged[:, :, wave_perm.long()]                  # [fpc,L0,C_out,Bc]
     rows = staged.permute(3, 0, 1, 2).reshape(Bc * period, C_out)
+    if tier:
+        return narrow_pack(rows, tier)
     if nbytes == 0:
         return rows.to(torch.int32)
     pk = torch.stack([(rows >> (8 * k)) & 0xFF for k in range(nbytes)], 2)
@@ -133,7 +182,7 @@ def output_stage_reference(series, frame_seed, frame_nshift, byp, mat_coeff,
 
 def _launch(series, frame_seed, frame_nshift, byp, mat_coeff, mat_noise,
             mat_out, mat_active, mat_quant, out_shift, wave_perm, chains,
-            n_mats, nbytes):
+            n_mats, nbytes, tier):
     from ..kernels.build import kernel_library
 
     Bc, fpc, L0, C_tot, C_out = _geometry(series, mat_coeff, wave_perm,
@@ -152,13 +201,30 @@ def _launch(series, frame_seed, frame_nshift, byp, mat_coeff, mat_noise,
         check(t, name, i8, (F_pad, 6), dev)
     check(out_shift, "out_shift", i8, (F_pad, 8), dev)
     check(wave_perm, "wave_perm", i8, (C_out,), dev)
-    if nbytes:
+    if tier:
+        row = C_out * 2 if tier == 16 else C_out // 2 * 3
+        out = torch.empty((Bc * period + 8, row), dtype=torch.uint8,
+                          device=dev)
+        misfit = torch.empty(1, dtype=torch.int32, device=dev)
+    elif nbytes:
         out = torch.empty((Bc * period, C_out * nbytes), dtype=torch.uint8,
                           device=dev)
     else:
         out = torch.empty((Bc * period, C_out), dtype=torch.int32,
                           device=dev)
     lib = kernel_library()
+    ptrs = (series.data_ptr(), frame_seed.data_ptr(), frame_nshift.data_ptr(),
+            byp.data_ptr(), mat_coeff.data_ptr(), mat_noise.data_ptr(),
+            mat_out.data_ptr(), mat_active.data_ptr(), mat_quant.data_ptr(),
+            out_shift.data_ptr(), wave_perm.data_ptr(), out.data_ptr())
+    if tier:
+        with torch.cuda.device(dev):
+            rc = lib.dvda_output_stage_narrow(
+                *ptrs, misfit.data_ptr(), Bc, fpc, L0, C_tot, C_out, n_mats,
+                tier, current_stream(dev))
+            output_stage.narrow_launches += 1
+        raise_on_error(rc, "output_stage_narrow")
+        return out
     with torch.cuda.device(dev):
         rc = lib.dvda_output_stage(
             series.data_ptr(), frame_seed.data_ptr(), frame_nshift.data_ptr(),
@@ -187,25 +253,28 @@ def output_stage(
     chains: int,   # Bc: restart chains in the chunk
     n_mats: int,   # matrix slots to run (highest active slot + 1)
     nbytes: int,   # 3 / 2: packed LE bytes; 0: int32 samples
+    tier: int = 0,  # 12 / 16: K234n's narrow readback (nbytes 3); 0: off
 ):
     """Noise, bypass unpack, rematrix, output shift, WAVE permutation and
     byte pack in one pass.  Returns uint8 ``[Bc*period, C_out*nbytes]``
     (``nbytes`` 2 or 3) or int32 ``[Bc*period, C_out]`` (``nbytes`` 0),
-    row ``b*period + t`` holding chain ``b``'s in-chain sample ``t``."""
-    if nbytes not in (0, 2, 3):
-        raise ValueError(f"nbytes must be 0, 2 or 3, got {nbytes}")
+    row ``b*period + t`` holding chain ``b``'s in-chain sample ``t``; with
+    ``tier``, the narrow rows and 8 flag rows of :func:`narrow_pack`."""
+    _check_form(nbytes, tier, wave_perm.shape[0])
     if not 0 <= n_mats <= MAX_MATRICES:
         raise ValueError(f"n_mats must be in 0..{MAX_MATRICES}, got {n_mats}")
     args = (series, frame_seed, frame_nshift, byp, mat_coeff, mat_noise,
             mat_out, mat_active, mat_quant, out_shift, wave_perm)
     if on_cuda(series):
-        return _launch(*args, chains, n_mats, nbytes)
+        return _launch(*args, chains, n_mats, nbytes, tier)
     return output_stage_reference(*args, chains=chains, n_mats=n_mats,
-                                  nbytes=nbytes)
+                                  nbytes=nbytes, tier=tier)
 
 
-#: kernel launches since the last reset (the CPU path never counts)
+#: kernel launches since the last reset (the CPU path never counts): K234,
+#: and apart from it K234n (``tier`` 12 or 16)
 output_stage.launches = 0
+output_stage.narrow_launches = 0
 
 
 # ------------------------------------------------------- K9: frame-major

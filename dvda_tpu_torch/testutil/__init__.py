@@ -25,6 +25,7 @@ from .synth import (BPS_CODE, RATE_CODE, MlpTrackSpec, PcmTrackSpec,
 __all__ = ["MlpSynthConfig", "synth_mlp_stream", "MlpTrackSpec",
            "PcmTrackSpec", "build_disc", "BPS_CODE", "RATE_CODE",
            "filter_inputs", "output_stage_inputs", "frame_remix_inputs",
+           "narrow_stage_inputs", "NARROW_EDGES", "NARROW_RANGES",
            "huffman_inputs", "huffman_worst_case", "huffman_edge_inputs",
            "FILTER_EDGES", "HUFFMAN_EDGES", "general_inputs",
            "encrypt_sectors_batch",
@@ -274,6 +275,33 @@ OUTPUT_STAGE_EDGES = (
     (33, 2, 40, 3, 2, 2, 2, True),
     (3, 1, 200, 8, 7, 5, 3, False),
 )
+
+#: K234n edge cases: each K234 edge shape at tier 12 (even C_out only: the
+#: tier packs channel pairs) and at tier 16
+NARROW_EDGES = tuple((shape, tier) for shape in OUTPUT_STAGE_EDGES
+                     for tier in (12, 16) if tier == 16 or shape[4] % 2 == 0)
+
+#: K234n's fits test at its edges: staged samples spanning [lo, hi], both
+#: ends present, and the flag that gives at tier 12 and at tier 16
+NARROW_RANGES = ((-2048, 2047, 3, 1), (-2049, 2048, 2, 1),
+                 (-32768, 32767, 2, 1), (-32769, 32768, 0, 0))
+
+
+def narrow_stage_inputs(seed: int, chains: int, fpc: int, L0: int,
+                        C_tot: int, C_out: int, lo: int, hi: int) -> dict:
+    """:func:`output_stage_inputs` with every matrix slot inactive and
+    zero output shifts, so that the staged samples are the series' own
+    values: uniform in ``[lo, hi]``, with every channel of every chain at
+    ``lo`` in its first sample and at ``hi`` in its last."""
+    inp = output_stage_inputs(seed, chains, fpc, L0, C_tot, C_out)
+    rng = np.random.default_rng(seed)
+    series = rng.integers(lo, hi + 1, inp["series"].shape)
+    series[0], series[-1] = lo, hi
+    inp.update(series=series.astype(np.int32),
+               mat_active=np.zeros_like(inp["mat_active"]),
+               out_shift=np.zeros_like(inp["out_shift"]))
+    return inp
+
 
 #: K6a edge shapes (n_ch, S, n_blocks, extreme) for :func:`general_inputs`
 #: (one substream, seed 0): every substream width, blocks of 1..S samples

@@ -209,11 +209,11 @@ def test_chunk_program_unfused_substreams():
 
 def test_chunk_program_refuses_other_modes():
     """Specs of modes this slice does not port raise instead of decoding."""
-    spec = (("__narrow__", 0, 16, (), "flag"),)
+    spec = (("__pallas__", 0, 1, (), "flag"),)
     empty = (torch.zeros(0, dtype=torch.int32),
              torch.zeros(0, dtype=torch.int16),
              torch.zeros(0, dtype=torch.int8))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 12"):
         port_ne.uniform_arena_pipeline(*empty, spec)
     # device-Huffman arenas without the track's words
     one = (torch.zeros(1, dtype=torch.int32),) + empty[1:]

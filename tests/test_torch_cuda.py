@@ -1,4 +1,4 @@
-"""Kernels K1, K234, K5, K6a, K6b, K7, K8 and K9 on the card against their
+"""Kernels K1, K234, K234n, K5, K6a, K6b, K7, K8 and K9 on the card against their
 plain versions, and the port's decode on the card (both MLP modes, the
 general path, the Python engines, the fused decode step, PCM, an
 encrypted disc) against its CPU decode.  Marked ``cuda``: they
@@ -38,7 +38,8 @@ from dvda_tpu_torch.parallel.mesh import make_mesh
 from dvda_tpu_torch.parallel.step import (decode_step, example_batch,
                                           make_sharded_step)
 from dvda_tpu_torch.testutil import (BPS_CODE, FILTER_EDGES, HUFFMAN_EDGES,
-                                     LANE_PACK_EDGES,
+                                     LANE_PACK_EDGES, NARROW_EDGES,
+                                     NARROW_RANGES,
                                      OUTPUT_STAGE_EDGES, RATE_CODE,
                                      MlpSynthConfig, MlpTrackSpec,
                                      PcmTrackSpec, build_disc,
@@ -46,7 +47,7 @@ from dvda_tpu_torch.testutil import (BPS_CODE, FILTER_EDGES, HUFFMAN_EDGES,
                                      filter_inputs, frame_remix_inputs,
                                      general_inputs, huffman_inputs,
                                      huffman_edge_inputs, huffman_worst_case,
-                                     output_stage_inputs,
+                                     narrow_stage_inputs, output_stage_inputs,
                                      synth_mlp_stream)
 
 pytestmark = pytest.mark.cuda
@@ -115,6 +116,63 @@ def test_output_stage_kernel_edge_shapes(dev, shape):
     got = output_stage(*args, **kw)
     assert output_stage.launches == before + 1
     assert torch.equal(got, output_stage_reference(*args, **kw))
+
+
+def _narrow_kernel_check(dev, inp, Bc, n_mats, tier):
+    """K234n on the card against its plain version, flag rows included,
+    with one launch counted apart; returns the flag."""
+    args = [torch.from_numpy(v).to(dev) for v in inp.values()]
+    kw = dict(chains=Bc, n_mats=n_mats, nbytes=3, tier=tier)
+    before = (output_stage.launches, output_stage.narrow_launches)
+    got = output_stage(*args, **kw)
+    assert (output_stage.launches,
+            output_stage.narrow_launches) == (before[0], before[1] + 1)
+    assert torch.equal(got, output_stage_reference(*args, **kw))
+    return int(got[-1, -1])
+
+
+@pytest.mark.parametrize("case", NARROW_EDGES,
+                         ids=lambda c: "-".join(map(str, c[0])) + f"-t{c[1]}")
+def test_narrow_kernel_edge_shapes(dev, case):
+    """K234n at K234's edge shapes, tier 12 (even C_out) and 16."""
+    (Bc, fpc, L0, C_tot, C_out, n_mats, _, extreme), tier = case
+    inp = output_stage_inputs(L0 + n_mats, Bc, fpc, L0, C_tot, C_out,
+                              extreme=extreme)
+    _narrow_kernel_check(dev, inp, Bc, n_mats, tier)
+
+
+@pytest.mark.parametrize("lo,hi,flag12,flag16", NARROW_RANGES)
+@pytest.mark.parametrize("tier", [12, 16])
+def test_narrow_kernel_fits_edges(dev, lo, hi, flag12, flag16, tier):
+    """The fits test across the grid's blocks, samples at the tiers' ends:
+    the flag of each tier."""
+    inp = narrow_stage_inputs(7, 70, 4, 80, 6, 6, lo, hi)
+    flag = _narrow_kernel_check(dev, inp, 70, 6, tier)
+    assert flag == (flag12 if tier == 12 else flag16)
+
+
+@pytest.mark.parametrize("huffman", [False, True])
+@pytest.mark.parametrize("shifts,tier", [((0, 1), 12), ((5, 6), 16),
+                                         ((7, 8), 0)])
+def test_narrow_decode_on_card(dev, huffman, shifts, tier):
+    """Quiet, mid and loud 24-bit streams on the card, narrow readback on
+    and off: equal to each other and to the CPU decode; the tier settles
+    at 12, 16 and 0."""
+    cfg = MlpSynthConfig(channel_assignment=17, substream_count=2,
+                         n_frames=24, seed=11, out_shift_range=shifts)
+    stream = synth_mlp_stream(cfg)
+    params = StreamParameters(BPS_CODE[24], 0xF, RATE_CODE[cfg.sample_rate],
+                              0xF, 17)
+    bnd = np.zeros(0, np.int64)
+    ref = decode_native(stream, bnd, len(stream), params, True,
+                        DecodeConfig(device="cpu", narrow_d2h=False))
+    for narrow in (True, False):
+        info = {}
+        got = decode_native(stream, bnd, len(stream), params, True,
+                            DecodeConfig(device="cuda", narrow_d2h=narrow,
+                                         device_huffman=huffman), info=info)
+        assert np.array_equal(got, ref)
+        assert info["tier"] == (tier if narrow else 0)
 
 
 def test_kernel_rejects_bad_arguments(dev):

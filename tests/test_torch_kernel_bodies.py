@@ -32,7 +32,8 @@ from dvda_tpu_torch.ops.rematrix import (apply_output_stage_reference,
                                          output_stage_reference,
                                          rematrix_frames_reference)
 from dvda_tpu_torch.testutil import (FILTER_EDGES, HUFFMAN_EDGES,
-                                     LANE_PACK_EDGES, OUTPUT_STAGE_EDGES,
+                                     LANE_PACK_EDGES, NARROW_EDGES,
+                                     NARROW_RANGES, OUTPUT_STAGE_EDGES,
                                      MlpSynthConfig, MlpTrackSpec,
                                      PcmTrackSpec, build_disc,
                                      cppm_sector_mix, filter_inputs,
@@ -40,6 +41,7 @@ from dvda_tpu_torch.testutil import (FILTER_EDGES, HUFFMAN_EDGES,
                                      general_inputs, huffman_inputs,
                                      huffman_edge_inputs,
                                      huffman_worst_case,
+                                     narrow_stage_inputs,
                                      output_stage_inputs, synth_mlp_stream)
 
 torch.set_num_threads(1)
@@ -62,6 +64,8 @@ def harness(tmp_path_factory):
     lib.cpu_mlp_filter.argtypes = [p] * 13 + [i, i, i]
     lib.cpu_output_stage.restype = None
     lib.cpu_output_stage.argtypes = [p] * 12 + [i] * 7
+    lib.cpu_output_stage_narrow.restype = None
+    lib.cpu_output_stage_narrow.argtypes = [p] * 12 + [i] * 7
     lib.cpu_huffman_decode.restype = None
     lib.cpu_huffman_decode.argtypes = ([p, ctypes.c_int64, ctypes.c_int64]
                                        + [p] * 11 + [i] * 9 + [p])
@@ -158,6 +162,42 @@ def test_output_stage_body_edge_shapes(harness, shape):
         *map(torch.from_numpy, inp.values()), chains=Bc, n_mats=n_mats,
         nbytes=nbytes).numpy()
     assert np.array_equal(out.view(np.int32) if nbytes == 0 else out, ref)
+
+
+def _narrow_check(harness, inp, Bc, fpc, L0, C_tot, C_out, n_mats, tier):
+    """K234n's body (the narrow pack, the fits test, the flag rows)
+    against the plain version; returns the flag."""
+    row = C_out * 2 if tier == 16 else C_out // 2 * 3
+    out = np.full((Bc * fpc * L0 + 8, row), 0x55, np.uint8)
+    harness.cpu_output_stage_narrow(*[_ptr(a) for a in inp.values()],
+                                    _ptr(out), Bc, fpc, L0, C_tot, C_out,
+                                    n_mats, tier)
+    ref = output_stage_reference(
+        *map(torch.from_numpy, inp.values()), chains=Bc, n_mats=n_mats,
+        nbytes=3, tier=tier).numpy()
+    assert np.array_equal(out, ref)
+    return int(out[-1, -1])
+
+
+@pytest.mark.parametrize("case", NARROW_EDGES,
+                         ids=lambda c: "-".join(map(str, c[0])) + f"-t{c[1]}")
+def test_narrow_body_edge_shapes(harness, case):
+    """K234n's body at K234's edge shapes, tier 12 (even C_out) and 16."""
+    (Bc, fpc, L0, C_tot, C_out, n_mats, _, extreme), tier = case
+    inp = output_stage_inputs(L0 + n_mats, Bc, fpc, L0, C_tot, C_out,
+                              extreme=extreme)
+    _narrow_check(harness, inp, Bc, fpc, L0, C_tot, C_out, n_mats, tier)
+
+
+@pytest.mark.parametrize("lo,hi,flag12,flag16", NARROW_RANGES)
+@pytest.mark.parametrize("tier", [12, 16])
+def test_narrow_body_fits_edges(harness, lo, hi, flag12, flag16, tier):
+    """The fits test with samples exactly at the tiers' ends (-2,048 and
+    2,047 fit 12 bits, -2,049 and 2,048 do not; likewise at 32,768): the
+    flag of each tier."""
+    inp = narrow_stage_inputs(7, 5, 2, 40, 6, 6, lo, hi)
+    flag = _narrow_check(harness, inp, 5, 2, 40, 6, 6, 6, tier)
+    assert flag == (flag12 if tier == 12 else flag16)
 
 
 def _frame_remix_check(harness, args, n_mats):
