@@ -8,8 +8,8 @@ Phases, each printing a line; any failure propagates (non-zero exit):
 1. device: the card's name and power limit (fails without CUDA);
 2. build: the CUDA kernels from dvda_tpu_torch/csrc with nvcc (sm_90a),
    one nvcc per source, all started together; ptxas's registers, shared
-   memory and stack per kernel (a stack frame in K1, K234, K5 or K6a
-   fails);
+   memory and stack per kernel (a stack frame in K1, K234, K5, K6a, K7
+   or K8 fails);
 3. synthesis: a 30-second 5.1/96k/24 MLP disc, and a three-track
    CPPM-encrypted disc — that MLP stream, 30 s of PCM 5.1/96k/24 and 30 s
    of PCM 2.0/48k/16 — with a plaintext copy;
@@ -17,7 +17,8 @@ Phases, each printing a line; any failure propagates (non-zero exit):
    bit-exact (tolerance 0: the decode is integer arithmetic), at the shapes
    the main paths give it (K1, K234 and K5 also at the edge shapes of
    ``testutil.FILTER_EDGES``, ``OUTPUT_STAGE_EDGES`` and
-   ``HUFFMAN_EDGES``; K234n, the narrow readback, at tiers 12 and 16 with
+   ``HUFFMAN_EDGES``, K7 at ``C2_EDGES`` and K8 at ``PCM_EDGES``;
+   K234n, the narrow readback, at tiers 12 and 16 with
    its flag rows, at the headline chunk, at ``NARROW_EDGES`` and with
    samples at the tiers' ends, ``NARROW_RANGES``, so that its flag takes
    each of 0-3) — K5's inputs come from the
@@ -27,9 +28,10 @@ Phases, each printing a line; any failure propagates (non-zero exit):
    all queued while the card waits in a spin kernel.  Beside it is the
    CUDA-event time of calls made back to back, which also holds the
    wrapper's host time where that is longer; the plain versions' times
-   are of the latter kind.  K1 and K5, bound by their serial chains, also
-   print their card time per dependent step (per sample of a lane, per
-   symbol of a sub-lane) and K5 its staged stream windows;
+   are of the latter kind.  K1, K5 and K7, bound by their serial chains,
+   also print their card time per dependent step (per sample of a lane,
+   per symbol of a sub-lane, per word of a sector) and K5 its staged
+   stream windows;
 5. MLP path, in both modes: the MLP disc decoded through
    ``open_disc(...)...read_all_packed()`` on the card in standard mode and
    in device-Huffman mode, each with the narrow readback on (the default)
@@ -117,7 +119,7 @@ KERNELS = ("mlp_filter", "output_stage", "output_stage_narrow",
 #: kernels whose build fails if ptxas gives them a stack frame (K234n runs
 #: K234's kernel, then its flag kernel ``output_stage_narrow``)
 NO_STACK = ("output_stage", "output_stage_narrow", "lane_pack", "mlp_filter",
-            "huffman_decode")
+            "huffman_decode", "c2_decrypt", "pcm_unpack")
 #: the three-tier streams (tests/test_mlp_native.py:728-765): 5.1, 24
 #: frames, seed 11, output shifts putting the peak within 12 bits, within
 #: int16, past int16; and the tier each must settle at
@@ -275,6 +277,8 @@ def _max_err(a, b) -> int:
     _require(a.shape == b.shape and a.dtype == b.dtype,
              f"shape/dtype mismatch {tuple(a.shape)} {a.dtype} vs "
              f"{tuple(b.shape)} {b.dtype}")
+    if a.numel() == 0:
+        return 0
     return int((a.to(torch.int64) - b.to(torch.int64)).abs().max().item())
 
 
@@ -551,7 +555,7 @@ def phase_kernels(stream, plain, enc_path):
     results["huffman_decode"] = _record(k5_err, ms, plain_ms, nbytes,
                                         24 * n_res)
     results["pcm_unpack"] = _kernel_k8(plain, dev)
-    results["c2_decrypt"] = _kernel_k7(enc_path, dev)
+    results["c2_decrypt"] = _kernel_k7(plain, enc_path, dev)
     results["frame_remix"] = _kernel_k9(dev)
     return results
 
@@ -689,13 +693,15 @@ def _kernel_k9(dev):
 
 def _kernel_k8(plain, dev):
     """K8: every (bps, channels) config at 64 random chunks in both output
-    forms, then the whole 30 s 5.1/96k/24 track."""
+    forms, then at ``testutil.PCM_EDGES``, then the whole 30 s 5.1/96k/24
+    track."""
     import numpy as np
     import torch
 
     from dvda_tpu_torch.codecs.pcm import chunk_size, pcm_gather_indices
     from dvda_tpu_torch.ops.pcm_unpack import (decode_chunks_device,
                                                decode_chunks_reference)
+    from dvda_tpu_torch.testutil import PCM_EDGES
 
     rng = np.random.default_rng(3)
     err = 0
@@ -713,6 +719,26 @@ def _kernel_k8(plain, dev):
                 err = max(err, e)
     print("[kernels] K8 pcm_unpack: 18 configs (16/20/24-bit x 1-6 ch) x 64 "
           "chunks, int32 and packed bytes: bit-exact")
+    # the tile edges: every config in every output form at each count
+    for n in PCM_EDGES:
+        for bits in (16, 20, 24):
+            for ch in range(1, 7):
+                chunks = torch.from_numpy(rng.integers(
+                    0, 256, (n, chunk_size(bits, ch)), dtype=np.uint8)).to(dev)
+                for nbytes in (0, 2, 3):
+                    e = _max_err(decode_chunks_device(chunks, bits, ch, nbytes),
+                                 decode_chunks_reference(chunks, bits, ch,
+                                                         nbytes))
+                    _require(e == 0, f"K8 n={n} {bits}-bit {ch} ch "
+                                     f"nbytes={nbytes}: error {e}")
+    buf = torch.zeros(64 * 36 + 4, dtype=torch.uint8, device=dev)
+    try:
+        decode_chunks_device(buf[4:].view(64, 36), 24, 6, 3)
+        _require(False, "K8 took a batch that is not 16-byte aligned")
+    except ValueError:
+        pass
+    print(f"[kernels] K8 at n = {', '.join(map(str, PCM_EDGES))} chunks x 18 "
+          "configs x nbytes 0/2/3: bit-exact; a misaligned batch raises")
     host_chunks, bits, ch = _pcm_track_chunks(plain, 2)
     chunks = torch.from_numpy(host_chunks.copy()).to(dev)
     n = chunks.shape[0]
@@ -750,10 +776,10 @@ def _kernel_k8(plain, dev):
                    packed.numel(), library_ms)
 
 
-def _kernel_k7(enc_path, dev):
+def _kernel_k7(plain, enc_path, dev):
     """K7 on the encrypted disc's first AOB batch (4,096 sectors), with
-    ``preserve_cci`` both ways, against its plain version and the port's
-    host C2."""
+    ``preserve_cci`` both ways, then at ``testutil.C2_EDGES``, against its
+    plain version and the port's host C2."""
     import numpy as np
     import torch
 
@@ -762,6 +788,7 @@ def _kernel_k7(enc_path, dev):
     from dvda_tpu_torch.cppm.decrypt import CppmDecryptor
     from dvda_tpu_torch.ops.c2_decrypt import (decrypt_sectors_device,
                                                decrypt_sectors_reference)
+    from dvda_tpu_torch.testutil import C2_EDGES, c2_edge_batch
 
     enc = AOBReader(enc_path, 1).read_sectors(0, 4096).copy()
     k_au = CppmDecryptor(MEDIA_KEY, ALBUM).k_au
@@ -784,6 +811,27 @@ def _kernel_k7(enc_path, dev):
     print(f"[kernels] K7 c2_decrypt: the CPPM disc's first {enc.shape[0]} "
           "sectors, preserve_cci both ways: bit-exact against the plain "
           "version and the port's host C2")
+    # the block edges: batches of 1-97 sectors from the plaintext disc,
+    # each 32-sector block mixing scrambled, clear and non-pack sectors
+    disc = AOBReader(plain.path, 1).read_sectors(0, 300).copy()
+    for n, seed in C2_EDGES:
+        _, batch = c2_edge_batch(disc, n, MEDIA_KEY, ALBUM, seed)
+        for preserve in (False, True):
+            for key in (k_au, k_au ^ 1 << 40):
+                got = torch.from_numpy(batch.copy()).to(dev)
+                decrypt_sectors_device(got, key, preserve)
+                e = _max_err(got, decrypt_sectors_reference(
+                    torch.from_numpy(batch).to(dev), key, preserve))
+                _require(e == 0, f"K7 {n} sectors preserve_cci={preserve} "
+                                 f"key {key:#x}: error {e}")
+                if key == k_au:
+                    want = batch.copy()
+                    host.c2_decrypt_sectors(want, MEDIA_KEY, ALBUM, preserve)
+                    _require(np.array_equal(got.cpu().numpy(), want),
+                             f"K7 {n} sectors: differs from the host C2")
+    print(f"[kernels] K7 at {', '.join(str(n) for n, _ in C2_EDGES)} "
+          "sectors, preserve_cci both ways, the right and a wrong key: "
+          "bit-exact (and == the host C2 with the right key)")
     # each timed launch decrypts its own copy of the batch (the kernel
     # works in place: a decrypted sector is no longer scrambled)
     reps = 50
@@ -797,15 +845,21 @@ def _kernel_k7(enc_path, dev):
     batch = torch.from_numpy(enc).to(dev)
     plain_ms = _cuda_ms(lambda: decrypt_sectors_reference(batch, k_au, False),
                         2)
-    print(f"[kernels] K7 one {enc.shape[0]}-sector batch: kernel {ms:.4f} "
-          f"ms on the card ({ev:.4f} ms per launch back to back), plain "
-          f"{plain_ms:.2f} ms per call (2 calls)")
     # in place: each sector read and written once.  Per scrambled sector
     # (the host C2 found every one of the batch scrambled) 5 content-key
     # c2_g calls of ~300 operations and 240 8-byte blocks x 10 rounds of
     # ~20 operations (cppm.c:481-566)
-    return _record(err, ms, plain_ms, 2 * enc.nbytes,
-                   enc.shape[0] * (5 * 300 + 240 * 10 * 20))
+    rec = _record(err, ms, plain_ms, 2 * enc.nbytes,
+                  enc.shape[0] * (5 * 300 + 240 * 10 * 20))
+    # the chain: a sector's 240 words run one after another (a 2-round
+    # schedule and 5 rounds each on it); tools/torch_timing_check.py
+    # chains measures a round's and a word's dependent cycles
+    print(f"[kernels] K7 one {enc.shape[0]}-sector batch: kernel {ms:.4f} "
+          f"ms on the card ({ev:.4f} ms per launch back to back; "
+          f"{ms * 1e6 / 240:.1f} ns per word of the 240-word chain), byte "
+          f"bound {rec['bound_ms']:.4f} ms, plain {plain_ms:.2f} ms per "
+          "call (2 calls)")
+    return rec
 
 
 def phase_main(layout, cfg, smi: str):

@@ -17,10 +17,27 @@
 //      copy-control bytes.  The walk never leaves its sector, so running it
 //      right after the sector's own decryption is "after decryption".
 //
-// ``sbox`` and ``sbox_f`` are the CPPM tables SBOX and SBOX_F of
-// dvda_tpu.cppm.c2 (uint32 [256] each); the card passes copies in shared
-// memory.  All arithmetic is uint32: L - F wraps, ka is cut to
-// 24 bits before each schedule step, and every shift is below 32.
+// The card runs these steps on a block's tile of 32 staged sectors
+// (c2_decrypt.cu), a lane a sector; the g++ harness runs them on the same
+// tile with the lanes emulated.  A staged sector is a row of
+// DVDA_C2_PITCH words: 2,064 bytes, 16-byte aligned for the card's bulk
+// copies (the 32 lanes' 8-byte reads of word w of their own rows then meet
+// a 2-way bank conflict, off the dependent chain; a 2,056-byte pitch
+// would avoid it but takes 8-byte copies, which staged 3.5x slower on the
+// H100: PERF.md).  Steps 1-2 read only the sector's first 128
+// bytes (c2_sector_kind, c2_content_key), so they can run while the rest
+// of the tile is still being copied.  Every byte that changes is written
+// twice: to the staged row, which later steps read, and at once to the
+// sector in the batch (``out``), so no pass writes the tile back.
+//
+// The tables are the cipher's SBOX and SBOX_F (uint32 [256] each) in two
+// derived forms, built by c2_derive_table: sbox << 4, the schedule's
+// addend, and P(SBOX_F[i]) with P(x) = x ^ rotl(x, 9) ^ rotl(x, 22).  P is
+// linear over xor, so F(code, key) = P(w) ^ P(SBOX_F[w & 0xFF]) with
+// w = code + key: the rotations of w run beside the table load instead of
+// after it, two operations fewer on each round's dependent chain.  All
+// arithmetic is uint32: L - F wraps, ka is cut to 24 bits before each
+// schedule step, and every shift is below 32.
 #pragma once
 
 #include "dvda_hd.cuh"
@@ -28,23 +45,63 @@
 #define DVDA_SECTOR_SIZE 2048
 #define DVDA_ENC_OFFSET 128
 #define DVDA_ENC_WORDS 240
+//: sectors a block stages, one a lane
+#define DVDA_C2_LANES 32
+//: 32-bit words a staged sector's row takes in shared memory
+#define DVDA_C2_PITCH 516
+//: bytes of a sector that the first steps read
+#define DVDA_C2_HEAD 128
 
-DVDA_HD uint32_t c2_F(uint32_t code, uint32_t key,
-                      const uint32_t* __restrict__ sbox_f) {
-  uint32_t work = code + key;
-  work ^= sbox_f[work & 0xFFu];
-  return work ^ ((work << 9) | (work >> 23)) ^ ((work << 22) | (work >> 10));
+DVDA_HD uint32_t dvda_rotl32(uint32_t x, int s) {
+#if defined(__CUDA_ARCH__)
+  return __funnelshift_l(x, x, s);
+#else
+  return (x << s) | (x >> (32 - s));
+#endif
 }
 
-// Subkeys of the 56-bit key (ka: high 24 bits, kb: low 32) for ``rounds``
-// (10 or 2; unrolled so that sk[] stays in registers).
-DVDA_HD void c2_schedule(uint32_t ka, uint32_t kb, int rounds, uint32_t* sk,
-                         const uint32_t* __restrict__ sbox) {
+DVDA_HD uint32_t dvda_bswap32(uint32_t v) {
+#if defined(__CUDA_ARCH__)
+  return __byte_perm(v, 0, 0x0123);
+#else
+  return (v >> 24) | ((v >> 8) & 0xFF00u) | ((v << 8) & 0xFF0000u) |
+         (v << 24);
+#endif
+}
+
+DVDA_HD uint32_t c2_mix(uint32_t x) {
+  return x ^ dvda_rotl32(x, 9) ^ dvda_rotl32(x, 22);
+}
+
+// Entry i of the derived tables: which 0 is sbox[i] << 4, which 1 is
+// P(sbox_f[i]).
+DVDA_HD uint32_t c2_derive_table(int which, int i, const uint32_t* sbox,
+                                 const uint32_t* sbox_f) {
+  return which == 0 ? sbox[i] << 4 : c2_mix(sbox_f[i]);
+}
+
+// The two derived tables (in the block's shared memory on the card).
+struct C2Tables {
+  const uint32_t* key4;  // sbox << 4
+  const uint32_t* mixf;  // P(sbox_f)
+};
+
+// One decryption round: (L, R) <- (R, L - F(R, k)).
+DVDA_HD void c2_round(uint32_t& L, uint32_t& R, uint32_t k,
+                      const C2Tables& t) {
+  const uint32_t w = R + k;
+  const uint32_t nr = L - (c2_mix(w) ^ t.mixf[w & 0xFFu]);
+  L = R;
+  R = nr;
+}
+
+// The 10 subkeys of the 56-bit key (ka: high 24 bits, kb: low 32).
+DVDA_HD void c2_schedule10(uint32_t ka, uint32_t kb, uint32_t* sk,
+                           const C2Tables& t) {
 #pragma unroll
   for (int rnd = 0; rnd < 10; ++rnd) {
-    if (rnd >= rounds) break;
     ka &= 0x00FFFFFFu;
-    sk[rnd] = kb + (sbox[(ka & 0xFFu) ^ (uint32_t)rnd] << 4);
+    sk[rnd] = kb + t.key4[(ka & 0xFFu) ^ (uint32_t)rnd];
     const uint32_t kc = kb >> 15;
     const uint32_t kd = ka >> 7;
     ka = (ka << 17) | kc;
@@ -52,19 +109,27 @@ DVDA_HD void c2_schedule(uint32_t ka, uint32_t kb, int rounds, uint32_t* sk,
   }
 }
 
+// The 2 subkeys of a later word.  The second lookup's index,
+// ((ka << 17 | kb >> 15) & 0xFF) ^ 1, depends on kb alone, so the two
+// loads issue together.
+DVDA_HD void c2_schedule2(uint32_t ka, uint32_t kb, uint32_t& s0,
+                          uint32_t& s1, const C2Tables& t) {
+  s0 = kb + t.key4[ka & 0xFFu];
+  s1 = ((kb << 17) | ((ka & 0x00FFFFFFu) >> 7)) +
+       t.key4[((kb >> 15) & 0xFFu) ^ 1u];
+}
+
 // c2_g(code, key) & 0x00FFFFFFFFFFFFFF: C2 encryption xor the input.
-DVDA_HD uint64_t c2_g56(uint64_t code, uint64_t key,
-                        const uint32_t* __restrict__ sbox,
-                        const uint32_t* __restrict__ sbox_f) {
+DVDA_HD uint64_t c2_g56(uint64_t code, uint64_t key, const C2Tables& t) {
   uint32_t sk[10];
-  c2_schedule((uint32_t)(key >> 32) & 0x00FFFFFFu, (uint32_t)key, 10, sk,
-              sbox);
+  c2_schedule10((uint32_t)(key >> 32) & 0x00FFFFFFu, (uint32_t)key, sk, t);
   uint32_t L = (uint32_t)(code >> 32), R = (uint32_t)code;
 #pragma unroll
   for (int rnd = 0; rnd < 10; ++rnd) {
-    const uint32_t t = L + c2_F(R, sk[rnd], sbox_f);
+    const uint32_t w = R + sk[rnd];
+    const uint32_t nr = L + (c2_mix(w) ^ t.mixf[w & 0xFFu]);
     L = R;
-    R = t;
+    R = nr;
   }
   // final swap: the output is (R, L)
   const uint64_t enc = ((uint64_t)R << 32) | L;
@@ -76,13 +141,117 @@ DVDA_HD uint32_t dvda_be32(const uint8_t* p) {
          ((uint32_t)p[2] << 8) | (uint32_t)p[3];
 }
 
-DVDA_HD uint32_t dvda_bswap32(uint32_t v) {
-  return (v >> 24) | ((v >> 8) & 0xFF00u) | ((v << 8) & 0xFF0000u) |
-         (v << 24);
+// Word w of the span: its big-endian halves (L, R), one 8-byte load.
+DVDA_HD void c2_load_word(const uint8_t* sec, int w, uint32_t& L,
+                          uint32_t& R) {
+  const uint8_t* p = sec + DVDA_ENC_OFFSET + 8 * w;
+#if defined(__CUDA_ARCH__)
+  const uint2 v = *reinterpret_cast<const uint2*>(p);
+#else
+  struct { uint32_t x, y; } v;
+  memcpy(&v, p, 8);
+#endif
+  L = dvda_bswap32(v.x);
+  R = dvda_bswap32(v.y);
 }
 
-// mpeg2_reset_cci (cppm.c:582-614; c2.cc reset_cci)
-DVDA_HD void c2_reset_cci(uint8_t* sec) {
+// The plaintext of word w from the state after round 0 (final swap), to
+// the staged row and to the sector in the batch (16-byte aligned).
+DVDA_HD void c2_store_word(uint8_t* sec, uint8_t* out, int w, uint32_t L,
+                           uint32_t R) {
+  const int at = DVDA_ENC_OFFSET + 8 * w;
+#if defined(__CUDA_ARCH__)
+  const uint2 v = make_uint2(dvda_bswap32(R), dvda_bswap32(L));
+  *reinterpret_cast<uint2*>(sec + at) = v;
+  *reinterpret_cast<uint2*>(out + at) = v;
+#else
+  const uint32_t v[2] = {dvda_bswap32(R), dvda_bswap32(L)};
+  memcpy(sec + at, v, 8);
+  memcpy(out + at, v, 8);
+#endif
+}
+
+// Rounds 9..5 of word w (subkeys s1, s0, s1, s0, s1) and rounds 4..0 of
+// word w-1 (q0, q1, q0, q1, q0), one of each in turn: the card issues a
+// warp's instructions in order, so the two independent chains interleave
+// only where the code does.
+DVDA_HD void c2_rounds_pair(uint32_t& L, uint32_t& R, uint32_t s0,
+                            uint32_t s1, uint32_t& pL, uint32_t& pR,
+                            uint32_t q0, uint32_t q1, const C2Tables& t) {
+  c2_round(L, R, s1, t);
+  c2_round(pL, pR, q0, t);
+  c2_round(L, R, s0, t);
+  c2_round(pL, pR, q1, t);
+  c2_round(L, R, s1, t);
+  c2_round(pL, pR, q0, t);
+  c2_round(L, R, s0, t);
+  c2_round(pL, pR, q1, t);
+  c2_round(L, R, s1, t);
+  c2_round(pL, pR, q0, t);
+}
+
+// D-CBC over the span with the content key (key_hi: 24 bits, key_lo).
+// Word 0 is peeled with its 10-round schedule; the loop over the later
+// words is straight-line and software-pipelined: each pass runs rounds
+// 4..0 of word w-1 beside the schedule and rounds 9..5 of word w, the
+// only part on the chain from one word's key to the next
+// (c2_rounds_pair).  The next word's halves are loaded a pass ahead.
+DVDA_HD void c2_dcbc(uint8_t* sec, uint8_t* out, uint32_t key_hi,
+                     uint32_t key_lo, const C2Tables& t) {
+  uint32_t sk[10];
+  c2_schedule10(key_hi, key_lo, sk, t);
+  uint32_t pL, pR;  // word w-1 after round 5
+  c2_load_word(sec, 0, pL, pR);
+#pragma unroll
+  for (int rnd = 9; rnd >= 5; --rnd) c2_round(pL, pR, sk[rnd], t);
+  uint32_t ka = key_hi ^ (pR & 0x00FFFFFFu), kb = key_lo ^ pL;
+  uint32_t nL, nR;  // word w's ciphertext
+  c2_load_word(sec, 1, nL, nR);
+  uint32_t q0, q1;  // word w-1's subkeys
+  {
+    uint32_t s0, s1, L = nL, R = nR;
+    c2_schedule2(ka, kb, s0, s1, t);
+    c2_load_word(sec, 2, nL, nR);
+    c2_round(pL, pR, sk[4], t);
+    c2_round(L, R, s1, t);
+    c2_round(pL, pR, sk[3], t);
+    c2_round(L, R, s0, t);
+    c2_round(pL, pR, sk[2], t);
+    c2_round(L, R, s1, t);
+    c2_round(pL, pR, sk[1], t);
+    c2_round(L, R, s0, t);
+    c2_round(pL, pR, sk[0], t);
+    c2_round(L, R, s1, t);
+    c2_store_word(sec, out, 0, pL, pR);
+    ka = key_hi ^ (R & 0x00FFFFFFu);
+    kb = key_lo ^ L;
+    pL = L, pR = R, q0 = s0, q1 = s1;
+  }
+  for (int w = 2; w < DVDA_ENC_WORDS; ++w) {
+    uint32_t s0, s1, L = nL, R = nR;
+    c2_schedule2(ka, kb, s0, s1, t);
+    // past the last word: word w again, unused (a select, not a branch)
+    c2_load_word(sec, w + 1 < DVDA_ENC_WORDS ? w + 1 : w, nL, nR);
+    c2_rounds_pair(L, R, s0, s1, pL, pR, q0, q1, t);
+    c2_store_word(sec, out, w - 1, pL, pR);
+    ka = key_hi ^ (R & 0x00FFFFFFu);
+    kb = key_lo ^ L;
+    pL = L, pR = R, q0 = s0, q1 = s1;
+  }
+#pragma unroll
+  for (int rnd = 4; rnd >= 0; --rnd) c2_round(pL, pR, rnd & 1 ? q1 : q0, t);
+  c2_store_word(sec, out, DVDA_ENC_WORDS - 1, pL, pR);
+}
+
+// A byte of the sector set in the staged row and in the batch.
+DVDA_HD void c2_set_byte(uint8_t* sec, uint8_t* out, int i, uint8_t v) {
+  sec[i] = v;
+  out[i] = v;
+}
+
+// mpeg2_reset_cci (cppm.c:582-614; c2.cc reset_cci) on the staged row
+// ``sec``; every byte it zeroes is zeroed in ``out`` too.
+DVDA_HD void c2_reset_cci(uint8_t* sec, uint8_t* out) {
   int pos = 14 + (sec[13] & 0x07);
   while (pos + 9 <= DVDA_SECTOR_SIZE) {
     if (!(sec[pos] == 0 && sec[pos + 1] == 0 && sec[pos + 2] == 1)) break;
@@ -91,58 +260,50 @@ DVDA_HD void c2_reset_cci(uint8_t* sec) {
       const int p = pos + 9 + sec[pos + 8];
       if (p + 13 <= DVDA_SECTOR_SIZE) {
         if (sec[p] == 0xA0 && sec[p + 3] > 8)
-          sec[p + 12] = 0;
+          c2_set_byte(sec, out, p + 12, 0);
         else if (sec[p] == 0xA1 && sec[p + 3] > 4)
-          sec[p + 8] = 0;
+          c2_set_byte(sec, out, p + 8, 0);
       }
     }
     pos += 6 + pes_len;
   }
 }
 
-// One sector, in place.  ``sec`` is 4-byte aligned (sectors are 2048-byte
-// rows of a contiguous batch).
-DVDA_HD void c2_decrypt_sector(uint8_t* sec, uint64_t k_au, bool preserve_cci,
-                               const uint32_t* __restrict__ sbox,
-                               const uint32_t* __restrict__ sbox_f) {
-  const bool pack = sec[0] == 0 && sec[1] == 0 && sec[2] == 1 &&
-                    sec[3] == 0xBA;
-  if (!pack) return;
-  if (((sec[20] >> 4) & 0x3) != 0) {
-    const int offs[5] = {24, 32, 40, 48, 84};
-    uint64_t key = k_au;
-    for (int j = 0; j < 5; ++j) {
-      const uint64_t f = ((uint64_t)dvda_be32(sec + offs[j]) << 32) |
-                         dvda_be32(sec + offs[j] + 4);
-      key = c2_g56(f, key, sbox, sbox_f);
-    }
-    const uint32_t key_hi = (uint32_t)(key >> 32), key_lo = (uint32_t)key;
-    uint32_t* span = reinterpret_cast<uint32_t*>(sec + DVDA_ENC_OFFSET);
-    uint32_t ka = key_hi, kb = key_lo;  // this word's key
-    uint32_t sk[10];
-    for (int w = 0; w < DVDA_ENC_WORDS; ++w) {
-      const int rounds = w == 0 ? 10 : 2;
-      c2_schedule(ka, kb, rounds, sk, sbox);
-      uint32_t L = dvda_bswap32(span[2 * w]);
-      uint32_t R = dvda_bswap32(span[2 * w + 1]);
-      uint32_t cap_hi = 0, cap_lo = 0;
+// What a staged sector is, from its first 128 bytes: 0 not a pack (left
+// as it is), 1 a clear pack (the CCI walk only), 2 a scrambled pack.
+DVDA_HD int c2_sector_kind(const uint8_t* sec) {
+  if (!(sec[0] == 0 && sec[1] == 0 && sec[2] == 1 && sec[3] == 0xBA))
+    return 0;
+  return ((sec[20] >> 4) & 0x3) != 0 ? 2 : 1;
+}
+
+// The content key of a scrambled sector, from its first 128 bytes.
+DVDA_HD uint64_t c2_content_key(const uint8_t* sec, uint64_t k_au,
+                                const C2Tables& t) {
+  const int offs[5] = {24, 32, 40, 48, 84};
+  uint64_t key = k_au;
 #pragma unroll
-      for (int rnd = 9; rnd >= 0; --rnd) {
-        const uint32_t t = L - c2_F(R, sk[w == 0 ? rnd : (rnd & 1)], sbox_f);
-        L = R;
-        R = t;
-        if (rnd == 5) {
-          cap_hi = R & 0x00FFFFFFu;
-          cap_lo = L;
-        }
-      }
-      // final swap: the plaintext word is (R, L)
-      span[2 * w] = dvda_bswap32(R);
-      span[2 * w + 1] = dvda_bswap32(L);
-      ka = key_hi ^ cap_hi;
-      kb = key_lo ^ cap_lo;
-    }
-    sec[20] &= 0xCD;
+  for (int j = 0; j < 5; ++j) {
+    const uint64_t f = ((uint64_t)dvda_be32(sec + offs[j]) << 32) |
+                       dvda_be32(sec + offs[j] + 4);
+    key = c2_g56(f, key, t);
   }
-  if (!preserve_cci) c2_reset_cci(sec);
+  return key;
+}
+
+// The rest of a pack sector once its row is staged whole: D-CBC and the
+// control reset if it is scrambled (kind 2), then the CCI walk.
+DVDA_HD void c2_decrypt_rest(uint8_t* sec, uint8_t* out, int kind,
+                             uint64_t key, bool preserve_cci,
+                             const C2Tables& t) {
+  if (kind == 2) {
+    c2_dcbc(sec, out, (uint32_t)(key >> 32), (uint32_t)key, t);
+    c2_set_byte(sec, out, 20, sec[20] & 0xCD);
+  }
+  if (kind != 0 && !preserve_cci) c2_reset_cci(sec, out);
+}
+
+// The staged row of sector s of a block's tile.
+DVDA_HD uint8_t* c2_tile_row(uint32_t* tile, int s) {
+  return reinterpret_cast<uint8_t*>(tile + s * DVDA_C2_PITCH);
 }

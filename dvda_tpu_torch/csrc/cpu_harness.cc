@@ -7,6 +7,7 @@
 // decode path uses it.
 #include <string.h>
 
+#include <algorithm>
 #include <vector>
 
 #include "c2_decrypt.cuh"
@@ -263,20 +264,73 @@ extern "C" void cpu_output_stage_narrow(
          8 * output_stage_row_bytes(C_out, form));
 }
 
+// K8 as the card runs it: tiles of DVDA_PCM_TILE chunks staged in turn
+// into two buffers (a ragged tile leaves the rest of its buffer stale),
+// each tile's 16-byte vectors built from the sources of their position in
+// the period and stored, the last one cut at the output's end
 extern "C" void cpu_pcm_unpack(const uint8_t* chunks, int64_t n, int csize,
                                int channels, int bits, int nbytes,
                                const int32_t* table, uint8_t* out) {
   DvdaPcmTable t;
   memset(&t, 0xff, sizeof(t));
   memcpy(t.idx, table, sizeof(int32_t) * 3 * 2 * channels);
-  for (int64_t i = 0; i < n * 2 * channels; ++i)
-    pcm_unpack_slot(i, 2 * channels, csize, bits, nbytes, t, chunks, out);
+  const DvdaPcmGeom g = pcm_geom(csize, channels, bits, nbytes);
+  std::vector<DvdaPcmVec> src(g.period_v);
+  for (int pv = 0; pv < g.period_v; ++pv)
+    src[pv] = pcm_vector_sources(g, t, pv);
+  std::vector<uint8_t> buf(2 * DVDA_PCM_TILE_BYTES, 0xA5);
+  const int64_t tile_out = (int64_t)DVDA_PCM_TILE * g.slots * g.ob;
+  const int64_t out_end = n * g.slots * g.ob;
+  for (int64_t tile = 0; tile * DVDA_PCM_TILE < n; ++tile) {
+    uint8_t* in = buf.data() + (tile & 1) * DVDA_PCM_TILE_BYTES;
+    const int64_t nc = std::min<int64_t>(n - tile * DVDA_PCM_TILE,
+                                         DVDA_PCM_TILE);
+    memcpy(in, chunks + tile * DVDA_PCM_TILE * csize, nc * csize);
+    const int64_t base = tile * tile_out;
+    const int64_t end = std::min(out_end - base, tile_out);
+    for (int64_t v = 0; 16 * v < end; ++v)
+      pcm_store_vector(out + base, 16 * v, end,
+                       pcm_vector(in + (v / g.period_v) * g.period_in,
+                                  src[v % g.period_v]));
+  }
 }
 
+// K7 as the card runs it: blocks of 32 sectors staged into a tile of
+// DVDA_C2_PITCH-word rows (the rest of the tile stale), the sectors' first
+// 128 bytes first, the 32 lanes' kinds and content keys from those alone,
+// then the rest of the rows and each lane's D-CBC and CCI walk, which
+// write the batch directly
 extern "C" void cpu_c2_decrypt(uint8_t* sectors, int64_t n, uint64_t k_au,
                                int preserve_cci, const uint32_t* sbox,
                                const uint32_t* sbox_f) {
-  for (int64_t s = 0; s < n; ++s)
-    c2_decrypt_sector(sectors + s * DVDA_SECTOR_SIZE, k_au, preserve_cci != 0,
-                      sbox, sbox_f);
+  uint32_t key4[256], mixf[256];
+  for (int j = 0; j < 256; ++j) {
+    key4[j] = c2_derive_table(0, j, sbox, sbox_f);
+    mixf[j] = c2_derive_table(1, j, sbox, sbox_f);
+  }
+  const C2Tables t{key4, mixf};
+  std::vector<uint32_t> tile(DVDA_C2_LANES * DVDA_C2_PITCH, 0xA5A5A5A5u);
+  for (int64_t first = 0; first < n; first += DVDA_C2_LANES) {
+    const int ns = (int)(n - first < DVDA_C2_LANES ? n - first
+                                                   : DVDA_C2_LANES);
+    uint8_t* batch = sectors + first * DVDA_SECTOR_SIZE;
+    for (int s = 0; s < ns; ++s)
+      memcpy(c2_tile_row(tile.data(), s), batch + s * DVDA_SECTOR_SIZE,
+             DVDA_C2_HEAD);
+    int kind[DVDA_C2_LANES];
+    uint64_t key[DVDA_C2_LANES];
+    for (int lane = 0; lane < ns; ++lane) {
+      const uint8_t* sec = c2_tile_row(tile.data(), lane);
+      kind[lane] = c2_sector_kind(sec);
+      key[lane] = kind[lane] == 2 ? c2_content_key(sec, k_au, t) : 0;
+    }
+    for (int s = 0; s < ns; ++s)
+      memcpy(c2_tile_row(tile.data(), s) + DVDA_C2_HEAD,
+             batch + s * DVDA_SECTOR_SIZE + DVDA_C2_HEAD,
+             DVDA_SECTOR_SIZE - DVDA_C2_HEAD);
+    for (int lane = 0; lane < ns; ++lane)
+      c2_decrypt_rest(c2_tile_row(tile.data(), lane),
+                      batch + lane * DVDA_SECTOR_SIZE, kind[lane],
+                      key[lane], preserve_cci != 0, t);
+  }
 }

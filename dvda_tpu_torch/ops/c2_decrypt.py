@@ -7,8 +7,9 @@ the header fields, D-CBC over the 240 big-endian words of bytes 128..2047,
 the control reset and, unless ``preserve_cci``, the CCI walk.
 
 * :func:`decrypt_sectors_device` — uint8 ``[N, 2048]`` sectors in place:
-  on a CUDA tensor it launches csrc/c2_decrypt.cu or raises, on a CPU
-  tensor it runs :func:`decrypt_sectors_reference`.
+  on a CUDA tensor it launches csrc/c2_decrypt.cu or raises (a batch at
+  an address that is not 16-byte aligned raises: a fresh allocation always
+  is), on a CPU tensor it runs :func:`decrypt_sectors_reference`.
 * :func:`dcbc_dec_device` and :func:`content_keys_device` — the cipher
   alone with the signatures of dvda_tpu/ops/c2_decrypt.py, in plain
   PyTorch, so that tests can hold it against the JAX functions.
@@ -169,9 +170,9 @@ def _launch(sectors, k_au, preserve_cci):
     dev = sectors.device
     n = sectors.shape[0]
     check(sectors, "sectors", torch.uint8, (n, SECTOR_SIZE), dev)
-    if sectors.data_ptr() % 4:
-        raise ValueError("sectors: the kernel reads 32-bit words and needs "
-                         "4-byte alignment")
+    if sectors.data_ptr() % 16:
+        raise ValueError("sectors: the kernel stages the batch by bulk "
+                         "copies and needs 16-byte alignment")
     if n == 0:
         return sectors  # a zero-size grid is a CUDA error
     sbox, sbox_f = _sboxes(dev, torch.int32)

@@ -8,7 +8,9 @@ is ``codecs.pcm.pcm_gather_indices``.  ``nbytes`` 2 or
 ``host.pcm_repack`` gives on dvda_tpu's PCM disc-to-WAV path.
 
 On a CUDA tensor :func:`decode_chunks_device` launches csrc/pcm_unpack.cu
-or raises; on a CPU tensor it runs :func:`decode_chunks_reference`.
+or raises (a batch at an address that is not 16-byte aligned raises: a
+fresh allocation always is); on a CPU tensor it runs
+:func:`decode_chunks_reference`.
 """
 
 from __future__ import annotations
@@ -74,6 +76,10 @@ def _launch(chunks, bits_per_sample, channels, nbytes):
     n = chunks.shape[0]
     dev = chunks.device
     out = _empty_out(n, channels, nbytes, dev)
+    for name, t in (("chunks", chunks), ("out", out)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel moves 16-byte vectors and "
+                             "needs 16-byte alignment")
     if n == 0:
         return out  # a zero-size grid is a CUDA error: nothing to launch
     table = np.ascontiguousarray(pcm_gather_indices(bits_per_sample,

@@ -8,7 +8,9 @@ seeded random inputs for kernels K1 and K234 in their call layouts, and
 symbols) those of kernel K5, :func:`general_inputs` the tables of the
 general path (K6a, K1, K6b).  :func:`encrypt_sectors_batch` CPPM-encrypts
 a disc's sectors (the inverse of kernel K7), vectorised across sectors,
-and :func:`cppm_sector_mix` adds the edge cases of K7's CCI walk.
+:func:`cppm_sector_mix` adds the edge cases of K7's CCI walk, and
+:func:`c2_edge_batch` lays them out at the batch sizes of
+:data:`C2_EDGES`.  :data:`PCM_EDGES` are kernel K8's chunk counts.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ __all__ = ["MlpSynthConfig", "synth_mlp_stream", "MlpTrackSpec",
            "huffman_inputs", "huffman_worst_case", "huffman_edge_inputs",
            "FILTER_EDGES", "HUFFMAN_EDGES", "general_inputs",
            "encrypt_sectors_batch",
-           "cppm_sector_mix"]
+           "cppm_sector_mix", "C2_EDGES", "c2_edge_batch", "PCM_EDGES"]
 
 
 def filter_inputs(seed: int, B: int, NB: int, S: int, extreme: bool = False,
@@ -534,3 +536,35 @@ def cppm_sector_mix(sectors: np.ndarray, media_key: int,
     enc = encrypt_sectors_batch(plain, media_key, id_album_media)
     enc[-2] = plain[-2]
     return plain, enc
+
+
+#: K7 edge batches (sectors, seed) for :func:`c2_edge_batch`: one
+#: sector, a 32-sector block less one, one block, a block and one, three
+#: blocks and one
+C2_EDGES = ((1, 1), (31, 2), (32, 3), (33, 4), (97, 5))
+
+
+def c2_edge_batch(sectors: np.ndarray, n: int, media_key: int,
+                  id_album_media: int, seed: int):
+    """(plaintext, encrypted) uint8 ``[n, 2048]`` batches for K7 edge
+    tests: rows of ``sectors`` (a disc's AOB sectors) in a seeded order,
+    with :func:`cppm_sector_mix`'s four edge sectors (the two walks to the
+    sector's end, the clear pack sector, the sector that is not a pack) at
+    seeded places in every 32-sector block that has room for them, so that
+    one warp of the kernel mixes scrambled, clear and non-pack sectors."""
+    plain, enc = cppm_sector_mix(sectors, media_key, id_album_media, seed)
+    m = plain.shape[0]
+    rng = np.random.default_rng(seed)
+    order = rng.integers(0, m - 4, n)
+    for b in range(0, n, 32):
+        w = min(32, n - b)
+        if w >= 4:
+            order[b + rng.choice(w, 4, replace=False)] = np.arange(m - 4, m)
+    return plain[order], enc[order]
+
+
+#: K8 edge chunk counts: none, one, a tile (256 chunks,
+#: csrc/pcm_unpack.cuh DVDA_PCM_TILE) less one, a tile, a tile and one,
+#: three tiles and 7 (a ragged last tile whose output, at most
+#: configurations, ends inside a 16-byte vector)
+PCM_EDGES = (0, 1, 255, 256, 257, 3 * 256 + 7)

@@ -37,7 +37,8 @@ from dvda_tpu_torch.ops.rematrix import (apply_output_stage_reference,
 from dvda_tpu_torch.parallel.mesh import make_mesh
 from dvda_tpu_torch.parallel.step import (decode_step, example_batch,
                                           make_sharded_step)
-from dvda_tpu_torch.testutil import (BPS_CODE, FILTER_EDGES, HUFFMAN_EDGES,
+from dvda_tpu_torch.testutil import (BPS_CODE, C2_EDGES, FILTER_EDGES,
+                                     HUFFMAN_EDGES, PCM_EDGES, c2_edge_batch,
                                      LANE_PACK_EDGES, NARROW_EDGES,
                                      NARROW_RANGES,
                                      OUTPUT_STAGE_EDGES, RATE_CODE,
@@ -379,6 +380,30 @@ def test_pcm_unpack_kernel_matches_plain(dev, bits, nbytes):
             assert torch.equal(got, ref), (ch, n)
 
 
+@pytest.mark.parametrize("n", PCM_EDGES)
+def test_pcm_unpack_kernel_edges(dev, n):
+    """Chunk counts around the kernel's 256-chunk tile at every config in
+    every output form."""
+    rng = np.random.default_rng(n)
+    for bits in (16, 20, 24):
+        for ch in range(1, 7):
+            chunks = torch.from_numpy(rng.integers(
+                0, 256, (n, chunk_size(bits, ch)), dtype=np.uint8)).to(dev)
+            for nbytes in (0, 2, 3):
+                got = decode_chunks_device(chunks, bits, ch, nbytes)
+                ref = decode_chunks_reference(chunks, bits, ch, nbytes)
+                assert torch.equal(got, ref), (bits, ch, nbytes)
+
+
+def test_pcm_unpack_rejects_misaligned(dev):
+    buf = torch.zeros(64 * 36 + 4, dtype=torch.uint8, device=dev)
+    view = buf[4:].view(64, 36)
+    before = decode_chunks_device.launches
+    with pytest.raises(ValueError, match="16-byte alignment"):
+        decode_chunks_device(view, 24, 6, 3)
+    assert decode_chunks_device.launches == before
+
+
 def _mix_disc(path):
     mlp = MlpSynthConfig(channel_assignment=17, substream_count=2,
                          sample_rate=96000, n_frames=48, seed=6,
@@ -414,6 +439,43 @@ def test_c2_decrypt_kernel_matches_plain(dev, tmp_path, preserve_cci):
     empty = torch.zeros((0, 2048), dtype=torch.uint8, device=dev)
     decrypt_sectors_device(empty, k_au)
     assert decrypt_sectors_device.launches == before + 1
+
+
+@pytest.fixture(scope="module")
+def mix_sectors(tmp_path_factory):
+    layout = _mix_disc(str(tmp_path_factory.mktemp("mix") / "AUDIO_TS"))
+    return AOBReader(layout.path, 1).read_sectors(0, 300).copy()
+
+
+@pytest.mark.parametrize("wrong_key", [False, True])
+@pytest.mark.parametrize("preserve_cci", [False, True])
+@pytest.mark.parametrize("n,seed", C2_EDGES)
+def test_c2_decrypt_kernel_edges(dev, mix_sectors, n, seed, preserve_cci,
+                                 wrong_key):
+    """Batches around the kernel's 32-sector blocks, each block mixing
+    scrambled, clear and non-pack sectors: the kernel against its plain
+    version, and with the right key against the port's host C2."""
+    plain, enc = c2_edge_batch(mix_sectors, n, *KEYS, seed)
+    k_au = CppmDecryptor(*KEYS).k_au ^ (1 << 40 if wrong_key else 0)
+    t = torch.from_numpy(enc).to(dev)
+    decrypt_sectors_device(t, k_au, preserve_cci)
+    ref = decrypt_sectors_reference(torch.from_numpy(enc).to(dev), k_au,
+                                    preserve_cci)
+    assert torch.equal(t, ref)
+    if not wrong_key:
+        want = enc.copy()
+        host.c2_decrypt_sectors(want, *KEYS, preserve_cci)
+        assert np.array_equal(t.cpu().numpy(), want)
+
+
+def test_c2_decrypt_rejects_misaligned(dev):
+    buf = torch.zeros(3 * 2048 + 4, dtype=torch.uint8, device=dev)
+    view = buf[4:].view(3, 2048)
+    before = decrypt_sectors_device.launches
+    with pytest.raises(ValueError, match="16-byte alignment"):
+        decrypt_sectors_device(view, CppmDecryptor(*KEYS).k_au)
+    assert decrypt_sectors_device.launches == before
+    assert not buf.any()
 
 
 def test_encrypted_disc_on_card_matches_cpu(dev, tmp_path):

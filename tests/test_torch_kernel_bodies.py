@@ -31,9 +31,10 @@ from dvda_tpu_torch.ops.pcm_unpack import decode_chunks_reference
 from dvda_tpu_torch.ops.rematrix import (apply_output_stage_reference,
                                          output_stage_reference,
                                          rematrix_frames_reference)
-from dvda_tpu_torch.testutil import (FILTER_EDGES, HUFFMAN_EDGES,
+from dvda_tpu_torch.testutil import (C2_EDGES, FILTER_EDGES, HUFFMAN_EDGES,
                                      LANE_PACK_EDGES, NARROW_EDGES,
                                      NARROW_RANGES, OUTPUT_STAGE_EDGES,
+                                     PCM_EDGES, c2_edge_batch,
                                      MlpSynthConfig, MlpTrackSpec,
                                      PcmTrackSpec, build_disc,
                                      cppm_sector_mix, filter_inputs,
@@ -371,8 +372,26 @@ def test_pcm_unpack_body_empty(harness):
     assert got.size == 0
 
 
+@pytest.mark.parametrize("n", PCM_EDGES)
+def test_pcm_unpack_body_edges(harness, n):
+    """The tile body at chunk counts around its 256-chunk tile, at every
+    (bps, ch) config in every output form: ragged last tiles, outputs
+    that end inside a 16-byte vector."""
+    rng = np.random.default_rng(n)
+    for bits in (16, 20, 24):
+        for channels in range(1, 7):
+            chunks = rng.integers(0, 256, (n, chunk_size(bits, channels)),
+                                  dtype=np.uint8)
+            for nbytes in (0, 2, 3):
+                got = _pcm_body(harness, chunks, bits, channels, nbytes)
+                ref = decode_chunks_reference(torch.from_numpy(chunks), bits,
+                                              channels, nbytes).numpy()
+                assert np.array_equal(got.reshape(ref.shape), ref), (
+                    bits, channels, nbytes)
+
+
 @pytest.fixture(scope="module")
-def cppm_mix(tmp_path_factory):
+def cppm_sectors(tmp_path_factory):
     mlp = MlpSynthConfig(channel_assignment=17, substream_count=2,
                          sample_rate=96000, n_frames=16, seed=6,
                          fir_across_restart=False)
@@ -382,9 +401,25 @@ def cppm_mix(tmp_path_factory):
         MlpTrackSpec(mlp_stream=synth_mlp_stream(mlp),
                      pcm_frames=mlp.total_pcm_frames, sample_rate=96000,
                      channel_assignment=17)]])
-    sectors = AOBReader(layout.path, 1).read_sectors(0, 12).copy()
-    keys = (0x00DEADBEEF001122, 0x0F0E0D0C0B0A0908)
-    return cppm_sector_mix(sectors, *keys), CppmDecryptor(*keys).k_au
+    return AOBReader(layout.path, 1).read_sectors(0, 12).copy()
+
+
+_KEYS = (0x00DEADBEEF001122, 0x0F0E0D0C0B0A0908)
+
+
+@pytest.fixture(scope="module")
+def cppm_mix(cppm_sectors):
+    return cppm_sector_mix(cppm_sectors, *_KEYS), CppmDecryptor(*_KEYS).k_au
+
+
+def _c2_body(harness, enc, k_au, preserve_cci):
+    """The K7 body as the card runs it, on a copy of ``enc``."""
+    got = enc.copy()
+    sbox = np.ascontiguousarray(SBOX, np.uint32)
+    sbox_f = np.ascontiguousarray(SBOX_F, np.uint32)
+    harness.cpu_c2_decrypt(_ptr(got), got.shape[0], k_au, int(preserve_cci),
+                           _ptr(sbox), _ptr(sbox_f))
+    return got
 
 
 @pytest.mark.parametrize("wrong_key", [False, True])
@@ -395,16 +430,29 @@ def test_c2_decrypt_body_matches_plain(harness, cppm_mix, preserve_cci,
     sector's end (one at its last byte), and a wrong key."""
     (plain, enc), k_au = cppm_mix
     k_au ^= 1 << 40 if wrong_key else 0
-    got = enc.copy()
-    sbox = np.ascontiguousarray(SBOX, np.uint32)
-    sbox_f = np.ascontiguousarray(SBOX_F, np.uint32)
-    harness.cpu_c2_decrypt(_ptr(got), got.shape[0], k_au, int(preserve_cci),
-                           _ptr(sbox), _ptr(sbox_f))
+    got = _c2_body(harness, enc, k_au, preserve_cci)
     ref = decrypt_sectors_reference(torch.from_numpy(enc), k_au,
                                     preserve_cci).numpy()
     assert np.array_equal(got, ref)
     if not wrong_key:
         assert np.array_equal(got, plain) == preserve_cci
+
+
+@pytest.mark.parametrize("wrong_key", [False, True])
+@pytest.mark.parametrize("preserve_cci", [False, True])
+@pytest.mark.parametrize("n,seed", C2_EDGES)
+def test_c2_decrypt_body_edges(harness, cppm_sectors, n, seed, preserve_cci,
+                               wrong_key):
+    """Batches around the kernel's 32-sector blocks, each block mixing
+    scrambled, clear and non-pack sectors, through the staged tile."""
+    plain, enc = c2_edge_batch(cppm_sectors, n, *_KEYS, seed)
+    k_au = CppmDecryptor(*_KEYS).k_au ^ (1 << 40 if wrong_key else 0)
+    ref = decrypt_sectors_reference(torch.from_numpy(enc), k_au,
+                                    preserve_cci).numpy()
+    got = _c2_body(harness, enc, k_au, preserve_cci)
+    assert np.array_equal(got, ref)
+    if preserve_cci and not wrong_key:
+        assert np.array_equal(ref, plain)
 
 
 _PACK_KEYS = ("res", "res_off", "lens", "bidx", "bmask", "rc_fir", "rc_iir",

@@ -30,7 +30,13 @@ shared-memory load; cycles per sample of K1's float64 group on its own),
 then K1 at the headline chunk [16, 40, 1,536] with every block full and
 16-bit taps (its float64 groups), the same 640 samples as one block of
 640, full-range taps (its one-sample step) and the smoke's pattern of half
-blocks (queued card time, ns and cycles per dependent step).
+blocks (queued card time, ns and cycles per dependent step).  The probe
+also times K7's chain (csrc/c2_decrypt.cuh) with its tables in shared
+memory: one C2 round after another, and one D-CBC word's chain after
+another (the 2-round schedule, then rounds 9..5), and the kernel's pass
+(the same with the previous word's rounds 4..0 beside it), and prints the
+chain of a sector (240 words and the content key's 50 rounds) in ms at
+the measured clock.
 
     python3 tools/torch_timing_check.py k1 PARENT
 
@@ -42,6 +48,17 @@ smoke's inputs), at the fused step's 2,048 lanes (``example_batch`` as
 ``decode_step`` flattens it) and at the churn disc's widest substream
 (K6a's outputs on the smoke's general-path disc, [32, 40, 18,000]).  The
 two kernels' outputs must be equal.
+
+    python3 tools/torch_timing_check.py k7 PARENT
+    python3 tools/torch_timing_check.py k8 PARENT
+
+do the same for K7 and K8, each built alone from PARENT's
+``csrc/c2_decrypt.cu`` or ``csrc/pcm_unpack.cu``: K7 on the smoke's
+first 4,096-sector batch of its CPPM disc and on that disc's last 284
+sectors (a track's tail batch), each call on its own fresh copy of the
+encrypted batch (K7 synthesises the smoke's CPPM disc: ~1.5 min of
+host); K8 on the smoke's 30 s 5.1/96k/24 PCM track and its 2.0/48k/16
+one, packed and int32.
 """
 
 from __future__ import annotations
@@ -111,6 +128,7 @@ _PROBE = r"""
 #include <cstdio>
 #include <cstdint>
 #include "mlp_filter.cuh"
+#include "c2_decrypt.cuh"
 constexpr int N = 1 << 16;
 __global__ void spin(long long cycles) {
   const long long t = clock64();
@@ -158,6 +176,41 @@ __global__ void group(int groups, int32_t* out, long long* sink) {
                        kFilterLanes);
   sink[threadIdx.x] = (long long)L.acc + L.fs[7];
 }
+// K7's chain: word 0 a round after another (mode 0), a D-CBC word's chain
+// after another (mode 1: the 2-round schedule from the last word's state,
+// rounds 9..5), or the kernel's pass (mode 2), the tables in static shared
+// memory as the kernel's
+__global__ void c2_chain(int mode, long long* sink) {
+  __shared__ uint32_t tab[2 * 256];
+  for (int i = threadIdx.x; i < 2 * 256; i += 32)
+    tab[i] = (uint32_t)i * 2654435761u;
+  __syncwarp();
+  const C2Tables t{tab, tab + 256};
+  uint32_t L = threadIdx.x * 77u, R = threadIdx.x * 13u + 1, ka = 5,
+           kb = threadIdx.x;
+  uint32_t pL = L ^ 3u, pR = R ^ 5u, q0 = 7, q1 = 11;
+  if (mode == 0) {
+    for (int i = 0; i < N; ++i) c2_round(L, R, kb, t);
+  } else {
+    for (int i = 0; i < N; ++i) {
+      uint32_t s0, s1;
+      c2_schedule2(ka, kb, s0, s1, t);
+      if (mode == 1) {
+        c2_round(L, R, s1, t);
+        c2_round(L, R, s0, t);
+        c2_round(L, R, s1, t);
+        c2_round(L, R, s0, t);
+        c2_round(L, R, s1, t);
+      } else {  // the kernel's pass: word w-1's rounds 4..0 beside
+        c2_rounds_pair(L, R, s0, s1, pL, pR, q0, q1, t);
+        q0 = s0, q1 = s1, pL = L, pR = R;
+      }
+      ka = 0x1234u ^ (R & 0x00FFFFFFu);
+      kb = 0x5678u ^ L;
+    }
+  }
+  sink[threadIdx.x] = L ^ R ^ pL ^ pR;
+}
 static float ms(void (*launch)(void*), void* arg) {
   cudaEvent_t e0, e1;
   cudaEventCreate(&e0);
@@ -178,6 +231,7 @@ template <int op> void run_chain(void*) {
 }
 void run_group(void*) { group<<<1, 32>>>(N / kFilterGroup, out, sink); }
 void run_spin(void*) { spin<<<1, 32>>>(1LL << 26); }
+template <int mode> void run_c2(void*) { c2_chain<<<1, 32>>>(mode, sink); }
 int main() {
   cudaMalloc(&sink, 32 * sizeof(long long));
   cudaMalloc(&out, kFilterGroup * kFilterLanes * sizeof(int32_t));
@@ -193,6 +247,13 @@ int main() {
   for (auto& r : t)
     printf("  %-34s %.1f cycles\n", r.name,
            ms(r.fn, nullptr) * 1e3 * mhz / ((double)N * r.per));
+  const double round = ms(run_c2<0>, nullptr) * 1e3 * mhz / N;
+  const double word = ms(run_c2<1>, nullptr) * 1e3 * mhz / N;
+  const double pass = ms(run_c2<2>, nullptr) * 1e3 * mhz / N;
+  printf("  K7 C2 round %.1f cycles; a word's chain %.1f cycles, the "
+         "kernel's pass %.1f; a sector's chain (240 words, 50 key rounds) "
+         "%.4f ms\n", round, word, pass,
+         (240 * word + 50 * round) / (mhz * 1e3));
   return cudaGetLastError() != cudaSuccess;
 }
 """
@@ -243,25 +304,35 @@ def _chains(smoke) -> int:
     return probe.returncode
 
 
-def _k1_parent(parent: str):
-    """The ``dvda_mlp_filter`` of the checkout at ``parent``, built alone."""
+def _built_alone(name: str, checkout: str, source: str, symbol: str,
+                 argtypes: list):
+    """``symbol`` of ``csrc/<source>`` in the checkout at ``checkout``,
+    built alone with ``nvcc`` into ``build/<name>``."""
     import ctypes
     import subprocess
 
     from dvda_tpu_torch.kernels.build import NVCC_FLAGS, _nvcc
 
-    out = os.path.join(ROOT, "build", "k1_parent")
+    out = os.path.join(ROOT, "build", name)
     os.makedirs(out, exist_ok=True)
-    lib = os.path.join(out, "libk1.so")
-    csrc = os.path.join(os.path.abspath(parent), "dvda_tpu_torch", "csrc")
+    lib = os.path.join(out, f"lib{name}.so")
+    csrc = os.path.join(os.path.abspath(checkout), "dvda_tpu_torch", "csrc")
     subprocess.run([_nvcc()] + NVCC_FLAGS + [
-        "-shared", "-I", csrc, "-o", lib, os.path.join(csrc, "mlp_filter.cu")],
+        "-shared", "-I", csrc, "-o", lib, os.path.join(csrc, source)],
         check=True)
-    fn = ctypes.CDLL(lib).dvda_mlp_filter
+    fn = getattr(ctypes.CDLL(lib), symbol)
     fn.restype = ctypes.c_int
-    fn.argtypes = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
+    fn.argtypes = argtypes
     return fn
+
+
+def _k1_parent(parent: str):
+    """The ``dvda_mlp_filter`` of the checkout at ``parent``, built alone."""
+    import ctypes
+
+    return _built_alone("k1_parent", parent, "mlp_filter.cu",
+                        "dvda_mlp_filter", [ctypes.c_void_p] * 13
+                        + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
 def _k1_launcher(fn, args):
@@ -368,6 +439,144 @@ def _k1_against(smoke, parent: str) -> int:
     return 0
 
 
+def _alternate(smoke, calls: dict, order: tuple, reps: int = 50) -> dict:
+    """Card ms of each of ``calls`` (name -> a call), in ``order``."""
+    ms = {k: [] for k in calls}
+    for k in order:
+        ms[k].append(smoke._times(calls[k], reps)[0])
+    return ms
+
+
+def _cppm_disc(smoke, work: str):
+    """The smoke's plaintext and encrypted three-track discs."""
+    _, _, _, spec = smoke.phase_synth(work)
+    plain, enc_path, _ = smoke.phase_synth_cppm(work, spec)
+    return plain, enc_path
+
+
+def _k7_against(smoke, parent: str) -> int:
+    """K7 here against K7 at ``parent`` (see the module note)."""
+    import ctypes
+    import tempfile
+
+    import torch
+
+    from dvda_tpu_torch.container.aob import AOBReader
+    from dvda_tpu_torch.cppm.decrypt import CppmDecryptor
+    from dvda_tpu_torch.kernels.build import kernel_library
+    from dvda_tpu_torch.ops.c2_decrypt import _sboxes
+
+    p, i64 = ctypes.c_void_p, ctypes.c_int64
+    args = [p, i64, ctypes.c_uint64, ctypes.c_int, p, p, p]
+    fns = {"parent": _built_alone("k7_parent", parent, "c2_decrypt.cu",
+                                  "dvda_c2_decrypt", args),
+           "change": kernel_library().dvda_c2_decrypt}
+    dev = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
+        _, enc_path = _cppm_disc(smoke, work)
+        aob = AOBReader(enc_path, 1)
+        total = aob.total_sectors
+        batches = [("4,096-sector batch", aob.read_sectors(0, 4096).copy()),
+                   ("284-sector tail batch",
+                    aob.read_sectors(total - 284, 284).copy())]
+    k_au = CppmDecryptor(smoke.MEDIA_KEY, smoke.ALBUM).k_au
+    sbox, sbox_f = (t.data_ptr() for t in _sboxes(dev, torch.int32))
+    stream = torch.cuda.current_stream().cuda_stream
+    reps = 50
+    for label, batch in batches:
+        src = torch.from_numpy(batch).to(dev)
+        n = src.shape[0]
+        outs = {}
+        for k, fn in fns.items():
+            outs[k] = src.clone()
+            rc = fn(outs[k].data_ptr(), n, k_au, 0, sbox, sbox_f, stream)
+            if rc:
+                raise RuntimeError(f"K7 {k}: CUDA error {rc}")
+        torch.cuda.synchronize()
+        if not all(torch.equal(o, outs["parent"]) for o in outs.values()):
+            print(f"K7 {label}: the outputs differ", flush=True)
+            return 1
+
+        def timed(fn):
+            # each call decrypts its own fresh copy: a decrypted sector is
+            # no longer scrambled
+            copies = src.unsqueeze(0).repeat(6 * reps + 3, 1, 1)
+            it = iter(range(copies.shape[0]))
+
+            def call():
+                rc = fn(copies[next(it)].data_ptr(), n, k_au, 0, sbox,
+                        sbox_f, stream)
+                if rc:
+                    raise RuntimeError(f"K7: CUDA error {rc}")
+            return smoke._times(call, reps)[0]
+
+        ms = {k: [] for k in fns}
+        for k in ("parent", "change", "change", "parent"):
+            ms[k].append(timed(fns[k]))
+        print(f"K7 {label} ({n} sectors): " + "; ".join(
+            f"{k} {v[0]:.4f} / {v[1]:.4f} ms" for k, v in ms.items())
+            + " on the card (parent, change, change, parent); outputs "
+            "equal", flush=True)
+    return 0
+
+
+def _k8_against(smoke, parent: str) -> int:
+    """K8 here against K8 at ``parent`` (see the module note)."""
+    import ctypes
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from dvda_tpu_torch.codecs.pcm import pcm_gather_indices
+    from dvda_tpu_torch.kernels.build import kernel_library
+    from dvda_tpu_torch.testutil import PcmTrackSpec, build_disc
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fns = {"parent": _built_alone("k8_parent", parent, "pcm_unpack.cu",
+                                  "dvda_pcm_unpack",
+                                  [p, ctypes.c_int64, i, i, i, i, p, p, p]),
+           "change": kernel_library().dvda_pcm_unpack}
+    dev = torch.device("cuda", 0)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as work:
+        # the smoke's two PCM tracks alone (the same chunks as on its disc)
+        layout = build_disc(os.path.join(work, "AUDIO_TS"),
+                            [[PcmTrackSpec(**t) for t in smoke.PCM_TRACKS]])
+        tracks = [smoke._pcm_track_chunks(layout, t) for t in (1, 2)]
+    stream = torch.cuda.current_stream().cuda_stream
+    for host_chunks, bits, ch in tracks:
+        chunks = torch.from_numpy(host_chunks.copy()).to(dev)
+        n, csize = chunks.shape
+        table = np.ascontiguousarray(pcm_gather_indices(bits, ch), np.int32)
+        for nbytes in (bits // 8, 0):
+            calls, outs = {}, {}
+            for k, fn in fns.items():
+                outs[k] = torch.empty(n * 2 * ch * (nbytes or 4),
+                                      dtype=torch.uint8, device=dev)
+
+                def call(fn=fn, out=outs[k]):
+                    rc = fn(chunks.data_ptr(), n, csize, ch, bits, nbytes,
+                            table.ctypes.data, out.data_ptr(), stream)
+                    if rc:
+                        raise RuntimeError(f"K8: CUDA error {rc}")
+                calls[k] = call
+                call()
+            torch.cuda.synchronize()
+            if not torch.equal(outs["parent"], outs["change"]):
+                print(f"K8 {ch} ch {bits}-bit nbytes={nbytes}: the outputs "
+                      "differ", flush=True)
+                return 1
+            ms = _alternate(smoke, calls, ("parent", "change", "change",
+                                           "parent"))
+            print(f"K8 {ch} ch {bits}-bit track, {n} chunks, "
+                  f"{'int32' if nbytes == 0 else f'packed {nbytes} bytes'}: "
+                  f"parent {ms['parent'][0]:.4f} / {ms['parent'][1]:.4f} ms, "
+                  f"change {ms['change'][0]:.4f} / {ms['change'][1]:.4f} ms "
+                  "on the card (parent, change, change, parent); outputs "
+                  "equal", flush=True)
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -381,9 +590,10 @@ def main() -> int:
     if sys.argv[1:] == ["chains"]:
         smoke.phase_device()
         return _chains(smoke)
-    if sys.argv[1:2] == ["k1"] and len(sys.argv) == 3:
+    against = {"k1": _k1_against, "k7": _k7_against, "k8": _k8_against}
+    if sys.argv[1:2] and sys.argv[1] in against and len(sys.argv) == 3:
         smoke.phase_device()
-        return _k1_against(smoke, sys.argv[2])
+        return against[sys.argv[1]](smoke, sys.argv[2])
     from dvda_tpu_torch.kernels.build import kernel_library
     from dvda_tpu_torch.ops.general_gather import lane_pack, series_remix
     from dvda_tpu_torch.ops.rematrix import frame_remix, output_stage
