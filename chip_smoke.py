@@ -8,8 +8,8 @@ Phases, each printing a line; any failure propagates (non-zero exit):
 1. device: the card's name and power limit (fails without CUDA);
 2. build: the CUDA kernels from dvda_tpu_torch/csrc with nvcc (sm_90a),
    one nvcc per source, all started together; ptxas's registers, shared
-   memory and stack per kernel (a stack frame in K1, K234, K5, K6a, K7
-   or K8 fails);
+   memory and stack per kernel (a stack frame in K1, K234, K5, K6a, K6b,
+   K7 or K8 fails);
 3. synthesis: a 30-second 5.1/96k/24 MLP disc, and a three-track
    CPPM-encrypted disc — that MLP stream, 30 s of PCM 5.1/96k/24 and 30 s
    of PCM 2.0/48k/16 — with a plaintext copy;
@@ -21,7 +21,9 @@ Phases, each printing a line; any failure propagates (non-zero exit):
    K234n, the narrow readback, at tiers 12 and 16 with
    its flag rows, at the headline chunk, at ``NARROW_EDGES`` and with
    samples at the tiers' ends, ``NARROW_RANGES``, so that its flag takes
-   each of 0-3) — K5's inputs come from the
+   each of 0-3, and twice in a row on one stream, a chunk that misses both
+   tiers and then one that fits both, whose flag must be its own: the one
+   launch resets its scratch) — K5's inputs come from the
    skip-values parse of the disc's first chunk, K8's from the PCM track's
    chunks, K7's from the encrypted disc's first AOB batch.  A kernel's
    time is its time on the card: CUDA events around calls the host has
@@ -56,7 +58,8 @@ Phases, each printing a line; any failure propagates (non-zero exit):
 7. general path: a 30-second 5.1/96k/24 MLP disc of 12 sections that
    alternate 2 x 40 and 4 x 20 samples per frame, which the pipelined
    driver abandons: K6a and K6b against their plain versions at its
-   shapes (K6a also at ``testutil.LANE_PACK_EDGES``; K1 timed at its
+   shapes (K6a also at ``testutil.LANE_PACK_EDGES``, K6b at
+   ``SERIES_REMIX_EDGES``; K1 timed at its
    widest substream), then the disc
    through ``open_disc(...).read_all_packed()``,
    which must take the general path (K6a, K1, K6b launched) and equal the
@@ -116,9 +119,9 @@ CHUNK, NB0, S0, L0 = 256, 16, 40, 80
 KERNELS = ("mlp_filter", "output_stage", "output_stage_narrow",
            "huffman_decode", "pcm_unpack", "c2_decrypt", "lane_pack",
            "series_remix", "frame_remix")
-#: kernels whose build fails if ptxas gives them a stack frame (K234n runs
-#: K234's kernel, then its flag kernel ``output_stage_narrow``)
-NO_STACK = ("output_stage", "output_stage_narrow", "lane_pack", "mlp_filter",
+#: kernels whose build fails if ptxas gives them a stack frame (K234n is
+#: one launch of K234's kernel, ``output_stage``)
+NO_STACK = ("output_stage", "lane_pack", "series_remix", "mlp_filter",
             "huffman_decode", "c2_decrypt", "pcm_unpack")
 #: the three-tier streams (tests/test_mlp_native.py:728-765): 5.1, 24
 #: frames, seed 11, output shifts putting the peak within 12 bits, within
@@ -601,9 +604,20 @@ def _kernel_k234n(args, Bc: int, fpc: int, L0: int, C: int, dev):
                                    f"{flag}, expected {want}")
             flags.add(flag)
     _require(flags == {0, 1, 2, 3}, f"K234n flags seen: {sorted(flags)}")
+    # two launches in a row on one stream: the second flag is its own
+    loud, quiet = ([torch.from_numpy(v).to(dev) for v in narrow_stage_inputs(
+        seed, Bc, fpc, L0, C, C, lo, hi).values()]
+        for seed, lo, hi in ((5, -32769, 32768), (6, -2048, 2047)))
+    for tier, want in ((12, 3), (16, 1)):
+        first = check(loud, Bc, 6, tier, "loud")
+        second = check(quiet, Bc, 6, tier, "quiet after loud")
+        _require((first, second) == (0, want),
+                 f"K234n tier {tier}, two launches in a row: flags "
+                 f"{first}, {second}, expected 0, {want}")
     print(f"[kernels] K234n output_stage narrow, headline chunk at tiers 12 "
           f"and 16, {len(NARROW_EDGES)} edge cases, samples at the tiers' "
-          f"ends (flags {sorted(flags)}): bit-exact, flag rows included")
+          f"ends (flags {sorted(flags)}), a loud then a quiet chunk on one "
+          "stream (flags 0 then 3 / 1): bit-exact, flag rows included")
     times = {}
     for tier in (16, 12):
         kw = dict(chains=Bc, n_mats=3, nbytes=3, tier=tier)
@@ -1258,7 +1272,8 @@ def _kernels_k6(subs, tabs, F: int, hc32, smi: str):
                                                    series_remix,
                                                    series_remix_reference)
     from dvda_tpu_torch.ops.mlp_filter import mlp_filter_blocks_tl
-    from dvda_tpu_torch.testutil import LANE_PACK_EDGES, general_inputs
+    from dvda_tpu_torch.testutil import (LANE_PACK_EDGES, SERIES_REMIX_EDGES,
+                                         general_inputs)
 
     err = 0
     packed = []
@@ -1333,6 +1348,22 @@ def _kernels_k6(subs, tabs, F: int, hc32, smi: str):
              "K6a + K1 + K6b differ from the host-complete reconstruction")
     print(f"[general] K6b series_remix [T, C] = {tuple(y.shape)}: bit-exact, "
           "and equal to host-complete")
+    # its tiles' edges, on full-range K1 outputs
+    gen = torch.Generator(device="cpu").manual_seed(0)
+    for name, n_ch, n_blocks, S, extreme, starts in SERIES_REMIX_EDGES:
+        esubs, eframes = general_inputs(0, n_blocks=n_blocks, S=S, n_ch=n_ch,
+                                        extreme=extreme, frame_starts=starts)
+        eframes = [torch.from_numpy(f).to(dev) for f in eframes]
+        eouts = [(torch.randint(-2**31, 2**31 - 1, (
+            u["bidx"].shape[1], u["S"], u["bidx"].shape[0] * nc),
+            generator=gen, dtype=torch.int32).to(dev),
+            torch.from_numpy(u["series_idx"]).to(dev), nc)
+            for u, nc in zip(esubs, n_ch)]
+        e = _max_err(series_remix(eouts, *eframes),
+                     series_remix_reference(eouts, *eframes))
+        _require(e == 0, f"K6b edge case {name}: max |kernel - plain| = {e}")
+    print("[general] K6b edge cases ("
+          + ", ".join(e[0] for e in SERIES_REMIX_EDGES) + "): bit-exact")
     k6b_ms, k6b_ev = _times(lambda: series_remix(outs, *tabs), 20)
     k6b_plain_ms = _cuda_ms(lambda: series_remix_reference(outs, *tabs), 2)
     # per sample: the frame search (~3 operations per step), 6 matrices x
@@ -1781,7 +1812,7 @@ def main() -> int:
         "pcm_unpack": "dvda_tpu/ops/pcm_unpack.py:30",
         "c2_decrypt": "dvda_tpu/ops/c2_decrypt.py:82",
         "lane_pack": "dvda_tpu/codecs/mlp/native_engine.py:502",
-        "series_remix": "dvda_tpu/codecs/mlp/native_engine.py:502",
+        "series_remix": "dvda_tpu/codecs/mlp/native_engine.py:538",
         "frame_remix": "dvda_tpu/ops/rematrix.py:33",
     }
     sources = {"lane_pack": "general_gather", "series_remix": "general_gather",

@@ -51,6 +51,11 @@ extern "C" void cpu_lane_pack(
   }
 }
 
+// K6b as the card runs it: the tiles in order, each tile's phases thread
+// by thread -- loads and gathers, the search rounds (each probe of a round
+// counted), the pieces (every thread's loads, then its stores, then its
+// rows), the 16-byte store items from the staged rows (stale where no row
+// lands)
 extern "C" void cpu_series_remix(
     const int32_t* out0, const int64_t* idx0, int nch0, const int32_t* out1,
     const int64_t* idx1, int nch1, const int64_t* frame_start,
@@ -58,12 +63,47 @@ extern "C" void cpu_series_remix(
     const int32_t* mat_noise, const int32_t* mat_out,
     const uint8_t* mat_active, const int32_t* mat_quant,
     const int32_t* out_shift, const int32_t* wave_perm, int32_t* out,
-    int64_t T, int F, int C_out) {
-  for (int64_t t = 0; t < T; ++t)
-    series_remix_sample(t, F, C_out, out0, idx0, nch0, out1, idx1,
-                        nch1, frame_start, noise01, bypassed, mat_coeff,
-                        mat_noise, mat_out, mat_active, mat_quant, out_shift,
-                        wave_perm, out);
+    int64_t T, int F, int C_out, int* pieces) {
+  std::vector<DvdaRemixInputs> in(kRemixThreads);
+  std::vector<DvdaRemixPieceLoads> v(kRemixThreads);
+  std::vector<DvdaOutFrame> s_fr(kRemixPiece);
+  std::vector<int32_t> s_y(kRemixRows * 8);
+  int64_t s_start[kRemixPiece + 1];
+  *pieces = 0;
+  for (int64_t t0 = 0; t0 < T; t0 += kRemixRows) {
+    for (int tid = 0; tid < kRemixThreads; ++tid)
+      series_remix_loads(tid, t0, T, idx0, idx1, nch1, noise01, bypassed,
+                         in[tid]);
+    int lo = 0, hi = F - 1;
+    while (lo < hi) {
+      const int step = series_remix_step(lo, hi);
+      int count = 0;
+      for (int k = 0; k < kRemixThreads; ++k)
+        count += series_remix_probe(k, lo, hi, step, t0, frame_start);
+      series_remix_narrow(count, step, lo, hi);
+    }
+    for (int tid = 0; tid < kRemixThreads; ++tid)
+      series_remix_gathers(tid, t0, T, out0, nch0, out1, nch1, in[tid]);
+    const int nw = series_remix_words(t0, T, C_out);
+    const int64_t t_last = t0 + nw / C_out - 1;
+    std::fill(s_y.begin(), s_y.end(), 0x5A5A5A5A);
+    for (int pa = lo;; pa += kRemixPiece) {
+      const int m = F - pa < kRemixPiece ? F - pa : kRemixPiece;
+      for (int tid = 0; tid < kRemixThreads; ++tid)
+        series_remix_piece_loads(tid, pa, m, F, frame_start, mat_coeff,
+                                 mat_noise, mat_out, mat_active, mat_quant,
+                                 out_shift, v[tid]);
+      for (int tid = 0; tid < kRemixThreads; ++tid)
+        series_remix_piece_stores(tid, m, v[tid], s_start, s_fr.data());
+      for (int tid = 0; tid < kRemixThreads; ++tid)
+        series_remix_rows(tid, t0, T, m, s_start, s_fr.data(), in[tid],
+                          wave_perm, C_out, s_y.data());
+      ++*pieces;
+      if (m < kRemixPiece || s_start[kRemixPiece] > t_last) break;
+    }
+    for (int w = 0; 4 * w < nw; ++w)
+      series_remix_store(w, t0, nw, C_out, s_y.data(), out);
+  }
 }
 
 extern "C" void cpu_frame_remix(
@@ -196,40 +236,73 @@ extern "C" void cpu_mlp_filter(
   }
 }
 
-// per (chain, frame): the tables, then the LFSR stepped over the frame's
-// samples, each sample's row straight into the output in ``form``;
-// returns the OR of the samples' misfit bits
+// K234 as the card runs it: the grid's tiles in order, each tile's phases
+// thread by thread (every thread's loads, then its shared stores, then the
+// strip seeds, each thread's samples into the staged runs -- stale where
+// no sample lands -- and the 16-byte store items); returns the OR of the
+// samples' misfit bits
+template <int kForm>
 static uint32_t output_stage_chunk(
     const int32_t* series, const int32_t* frame_seed,
     const int8_t* frame_nshift, const int8_t* byp, const int16_t* mat_coeff,
     const int16_t* mat_noise, const int8_t* mat_out, const int8_t* mat_active,
     const int8_t* mat_quant, const int8_t* out_shift, const int8_t* wave_perm,
-    uint8_t* out, int Bc, int fpc, int L0, int C_tot, int C_out, int n_mats,
-    int form) {
-  const int row = output_stage_row_bytes(C_out, form);
-  const int64_t period = (int64_t)fpc * L0;
+    uint8_t* out, int Bc, int fpc, int L0, int C_tot, int C_out,
+    int n_mats) {
+  const int row = output_stage_row_bytes(C_out, kForm);
+  const int nx = fpc * output_stage_strips(L0);
+  const int ny = (Bc + kOutTileChains - 1) / kOutTileChains;
+  std::vector<DvdaOutFrame> s_fr(kOutTileChains);
+  std::vector<uint32_t> s_out(kOutTileChains * kOutPitch);
+  std::vector<uint8_t> s_byp(kOutTileChains * kOutStrip);
+  std::vector<uint32_t> s_seed(kOutTileChains);
+  std::vector<DvdaOutInputs> in(kOutThreads);
+  int8_t s_perm[8];
+  memcpy(s_perm, wave_perm, C_out);
   uint32_t misfit = 0;
-  for (int b = 0; b < Bc; ++b)
-    for (int f = 0; f < fpc; ++f) {
-      const int64_t fi = (int64_t)b * fpc + f;
-      DvdaOutFrame fr;
-      for (int e = 0; e < kOutFrameItems; ++e)
-        output_stage_set_item(
-            fr, e, output_stage_item(fi, e, frame_nshift, mat_coeff,
-                                     mat_noise, mat_out, mat_active,
-                                     mat_quant, out_shift));
-      uint32_t seed = (uint32_t)frame_seed[fi];
-      for (int i = 0; i < L0; ++i) {
-        const int64_t t = (int64_t)f * L0 + i;
-        int32_t ch[8];
-        output_stage_channels(series, t, Bc, C_tot, b, ch);
-        misfit |= output_stage_sample(
-            fr, seed, n_mats, ch, (uint8_t)byp[(int64_t)b * period + t],
-            wave_perm, C_out, form, out + (b * period + t) * row);
-        seed = dvda_lfsr_step(seed);
+  for (int y = 0; y < ny; ++y)
+    for (int x = 0; x < nx; ++x) {
+      const DvdaOutTile t = output_stage_tile(x, y, Bc, fpc, L0, row);
+      for (int tid = 0; tid < kOutThreads; ++tid) {
+        output_stage_inputs(tid, t, series, Bc, C_tot, in[tid]);
+        DvdaOutTableLoads tab;
+        output_stage_table_loads(tid, t, fpc, frame_nshift, mat_coeff,
+                                 mat_noise, mat_out, mat_active, mat_quant,
+                                 out_shift, tab);
+        uint8_t bv[kOutBypPasses];
+        output_stage_byp_loads(tid, t, byp, bv);
+        output_stage_table_stores(tid, t, tab, s_fr.data());
+        output_stage_byp_stores(tid, bv, s_byp.data());
       }
+      for (int c = 0; c < kOutTileChains; ++c)
+        s_seed[c] = dvda_lfsr_at(
+            output_stage_frame_seed(c, t, fpc, frame_seed), t.i0);
+      memset(s_out.data(), 0xA5, s_out.size() * 4);
+      uint32_t slot[8];
+      for (int tid = 0; tid < kOutThreads; ++tid)
+        misfit |= output_stage_samples<kForm>(
+            tid, t, in[tid], s_fr.data(), s_seed.data(), s_byp.data(), s_perm,
+            n_mats, C_out, slot, s_out.data());
+      const int items = t.nct * output_stage_vectors(t);
+      for (int k = 0; k < items; ++k)
+        output_stage_store(k, t, s_out.data(), out);
     }
   return misfit;
+}
+
+// The LFSR state i steps after each seed by the kernel's jump
+// (dvda_lfsr_at, steps 0), or by i single steps (dvda_lfsr_step, steps 1),
+// for the tests to hold one against the other
+extern "C" void cpu_lfsr_at(const uint32_t* seeds, int n, int64_t i,
+                            int steps, uint32_t* out) {
+  for (int k = 0; k < n; ++k) {
+    uint32_t s = seeds[k];
+    if (steps)
+      for (int64_t j = 0; j < i; ++j) s = dvda_lfsr_step(s);
+    else
+      s = dvda_lfsr_at(s, i);
+    out[k] = s;
+  }
 }
 
 extern "C" void cpu_output_stage(
@@ -239,10 +312,12 @@ extern "C" void cpu_output_stage(
     const int8_t* mat_quant, const int8_t* out_shift, const int8_t* wave_perm,
     uint8_t* out, int Bc, int fpc, int L0, int C_tot, int C_out, int n_mats,
     int nbytes) {
-  output_stage_chunk(series, frame_seed, frame_nshift, byp, mat_coeff,
-                     mat_noise, mat_out, mat_active, mat_quant, out_shift,
-                     wave_perm, out, Bc, fpc, L0, C_tot, C_out, n_mats,
-                     nbytes ? nbytes : 4);
+  auto chunk = nbytes == 2   ? output_stage_chunk<2>
+               : nbytes == 3 ? output_stage_chunk<3>
+                             : output_stage_chunk<4>;
+  chunk(series, frame_seed, frame_nshift, byp, mat_coeff, mat_noise, mat_out,
+        mat_active, mat_quant, out_shift, wave_perm, out, Bc, fpc, L0, C_tot,
+        C_out, n_mats);
 }
 
 // K234n: the narrow rows of ``tier`` (12 or 16), then the 8 flag rows
@@ -254,10 +329,11 @@ extern "C" void cpu_output_stage_narrow(
     uint8_t* out, int Bc, int fpc, int L0, int C_tot, int C_out, int n_mats,
     int tier) {
   const int form = tier == 16 ? 2 : kNarrow12;
-  const uint32_t misfit = output_stage_chunk(
-      series, frame_seed, frame_nshift, byp, mat_coeff, mat_noise, mat_out,
-      mat_active, mat_quant, out_shift, wave_perm, out, Bc, fpc, L0, C_tot,
-      C_out, n_mats, form);
+  const uint32_t misfit =
+      (tier == 16 ? output_stage_chunk<2> : output_stage_chunk<kNarrow12>)(
+          series, frame_seed, frame_nshift, byp, mat_coeff, mat_noise,
+          mat_out, mat_active, mat_quant, out_shift, wave_perm, out, Bc, fpc,
+          L0, C_tot, C_out, n_mats);
   const int64_t rows = (int64_t)Bc * fpc * L0 * output_stage_row_bytes(C_out,
                                                                        form);
   memset(out + rows, output_stage_narrow_flag(misfit, tier),

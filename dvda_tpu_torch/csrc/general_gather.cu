@@ -27,15 +27,22 @@
 // It reads the ragged residuals through per-block offsets, so the host
 // never builds a padded copy.
 //
-// K6b (series_remix_kernel): one thread per output sample t.  The frame of t
-// is found by binary search over the frame starts, which replaces dvda_tpu's
-// frame_idx / flat_idx gathers (they exist to give XLA static frame-major
-// shapes); the thread gathers its 8 channels from K1's outputs, runs the
-// frame's 6-slot matrix chain and the output stage, and writes row t.
-// Bound: bytes in principle (36 B of inputs and 24 B of output per 5.1
-// sample); each thread also re-reads its frame's ~80 matrix words, which
-// neighbouring threads share through L1/L2.  The design does nothing more
-// yet: a later change can stage a frame's tables in shared memory.
+// K6b (series_remix_kernel): a block per tile of 512 consecutive output
+// rows, 256 threads.  Bound: bytes (per 5.1 sample 16 B of indices, 24 B
+// of channels, 8 B of noise, 1 B of bits in, 24 B out; 222 MB at the
+// churn disc).  The design (general_gather.cuh's tile bodies):
+//   * a thread issues its rows' index, noise and bit loads first, then,
+//     after the search below, its channel gathers (all 16 in flight);
+//   * the tile's first frame by one search of the whole block, 256 probes
+//     a round (two rounds at 36,000 frames), not a binary search a thread;
+//     replaces dvda_tpu's frame_idx / flat_idx gathers (they exist to give
+//     XLA static frame-major shapes);
+//   * the tables of 16 frames from there staged in shared memory at once
+//     (loaded with the frame starts, before the rows' frames are known),
+//     walked in pieces where short or empty frames put more in a tile;
+//     consecutive rows share a frame, so a warp's table reads broadcast;
+//   * the tile's [512, C_out] rows staged in shared memory and stored as
+//     16-byte vectors.
 #include <cuda_runtime.h>
 
 #include "general_gather.cuh"
@@ -119,23 +126,55 @@ __global__ void __launch_bounds__(kThreads) lane_pack_kernel(
   }
 }
 
-__global__ void series_remix_kernel(
-    int64_t T, int F, int C_out, const int32_t* out0,
-    const int64_t* idx0, int nch0, const int32_t* out1, const int64_t* idx1,
-    int nch1, const int64_t* frame_start, const int32_t* noise01,
-    const uint8_t* bypassed, const int32_t* mat_coeff,
-    const int32_t* mat_noise, const int32_t* mat_out,
-    const uint8_t* mat_active, const int32_t* mat_quant,
-    const int32_t* out_shift, const int32_t* wave_perm, int32_t* out) {
-  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= T) return;
-  series_remix_sample(t, F, C_out, out0, idx0, nch0, out1, idx1, nch1,
-                      frame_start, noise01, bypassed, mat_coeff, mat_noise,
-                      mat_out, mat_active, mat_quant, out_shift, wave_perm,
-                      out);
+__global__ void __launch_bounds__(kRemixThreads) series_remix_kernel(
+    int64_t T, int F, int C_out, const int32_t* __restrict__ out0,
+    const int64_t* __restrict__ idx0, int nch0,
+    const int32_t* __restrict__ out1, const int64_t* __restrict__ idx1,
+    int nch1, const int64_t* __restrict__ frame_start,
+    const int32_t* __restrict__ noise01,
+    const uint8_t* __restrict__ bypassed,
+    const int32_t* __restrict__ mat_coeff,
+    const int32_t* __restrict__ mat_noise,
+    const int32_t* __restrict__ mat_out,
+    const uint8_t* __restrict__ mat_active,
+    const int32_t* __restrict__ mat_quant,
+    const int32_t* __restrict__ out_shift,
+    const int32_t* __restrict__ wave_perm, int32_t* __restrict__ out) {
+  __shared__ DvdaOutFrame s_fr[kRemixPiece];
+  __shared__ int64_t s_start[kRemixPiece + 1];
+  __shared__ __align__(16) int32_t s_y[kRemixRows * 8];
+  __shared__ int32_t s_perm[8];
+  const int tid = threadIdx.x;
+  const int64_t t0 = (int64_t)blockIdx.x * kRemixRows;
+  DvdaRemixInputs in;
+  series_remix_loads(tid, t0, T, idx0, idx1, nch1, noise01, bypassed, in);
+  if (tid < C_out) s_perm[tid] = wave_perm[tid];
+  int lo = 0, hi = F - 1;  // the tile's first frame lies in [lo, hi]
+  while (lo < hi) {
+    const int step = series_remix_step(lo, hi);
+    const int count = __syncthreads_count(
+        series_remix_probe(tid, lo, hi, step, t0, frame_start));
+    series_remix_narrow(count, step, lo, hi);
+  }
+  series_remix_gathers(tid, t0, T, out0, nch0, out1, nch1, in);
+  const int nw = series_remix_words(t0, T, C_out);
+  const int64_t t_last = t0 + nw / C_out - 1;
+  for (int pa = lo;; pa += kRemixPiece) {
+    const int m = F - pa < kRemixPiece ? F - pa : kRemixPiece;
+    DvdaRemixPieceLoads v;
+    series_remix_piece_loads(tid, pa, m, F, frame_start, mat_coeff,
+                             mat_noise, mat_out, mat_active, mat_quant,
+                             out_shift, v);
+    if (pa != lo) __syncthreads();  // the last piece's rows are done
+    series_remix_piece_stores(tid, m, v, s_start, s_fr);
+    __syncthreads();
+    series_remix_rows(tid, t0, T, m, s_start, s_fr, in, s_perm, C_out, s_y);
+    if (m < kRemixPiece || s_start[kRemixPiece] > t_last) break;
+  }
+  __syncthreads();
+  for (int w = tid; 4 * w < nw; w += kRemixThreads)
+    series_remix_store(w, t0, nw, C_out, s_y, out);
 }
-
-unsigned grid(int64_t n) { return (unsigned)((n + kThreads - 1) / kThreads); }
 
 }  // namespace
 
@@ -173,7 +212,13 @@ extern "C" int dvda_series_remix(
     const int32_t* out_shift, const int32_t* wave_perm, int32_t* out,
     int64_t T, int F, int C_out, void* stream) {
   if (T <= 0) return 0;
-  series_remix_kernel<<<grid(T), kThreads, 0, (cudaStream_t)stream>>>(
+  if (F < 1 || C_out < 1 || C_out > 8 || nch0 < 1 || nch1 < 0 ||
+      nch0 + nch1 > 8)
+    return (int)cudaErrorInvalidValue;
+  const int64_t blocks = (T + kRemixRows - 1) / kRemixRows;
+  if (blocks > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+  series_remix_kernel<<<(unsigned)blocks, kRemixThreads, 0,
+                        (cudaStream_t)stream>>>(
       T, F, C_out, out0, idx0, nch0, out1, idx1, nch1, frame_start,
       noise01, bypassed, mat_coeff, mat_noise, mat_out, mat_active, mat_quant,
       out_shift, wave_perm, out);

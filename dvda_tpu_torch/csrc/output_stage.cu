@@ -6,64 +6,55 @@
 // dvda_tpu/ops/rematrix.py::rematrix_frames_tl and apply_output_stage_tl,
 // and the little-endian byte pack into WAV time order (:319-328, :370-372).
 //
-// Bound: latency.  The bytes are few (2.2 us at the headline chunk); what
-// costs is the chain of up to 6 dependent int64 matrix dots per sample,
-// the LFSR's serial steps and the table loads.  The design:
-//   * one thread per (chain, sample): a block takes a tile of CT chains x
-//     one frame (CT * Ls <= 512 threads, chains fastest so a warp's
-//     ``series`` loads stay chain-minor), in strips of Ls = min(L0, 160)
-//     samples; 163,840 threads at the headline chunk;
-//   * the block loads the tile's frame tables into shared memory, one
-//     item a thread with every load in flight before the first store;
-//     there the runtime slot count indexes them with no stack frame;
-//   * one thread per chain steps the frame's LFSR serially into shared
-//     memory while the other threads load their samples;
-//   * each sample's output bytes are staged in shared memory, and the
-//     block stores each chain-frame's contiguous run of L0 x C_out x
-//     nbytes bytes as whole 32-bit words (bytes only at an unaligned edge).
-//
 // K234n, the narrow readback of the same program (dvda_tpu
 // native_engine.py:330-369): the same kernel writes the 16-bit tier (form
-// 2) or the 12-bit tier (channel pairs in 3 bytes), and a second launch
-// writes the 8 flag rows after them.  Bound: bytes, less than K234's
-// (1.97 MB written at tier 16 and 1.47 MB at tier 12 per headline chunk,
-// 2.95 MB wide); the work added to a sample is two compares a value.  The
-// fits test is a reduction over the whole chunk: each sample ORs the tiers
-// its values miss, each block folds them with two __syncthreads_or and one
-// atomicOr into a device word the launch zeroed, and the flag launch
-// reads that word.  Bit operations only: the result does not depend on the
-// order of the blocks.
+// 2) or the 12-bit tier (channel pairs in 3 bytes), and the 8 flag rows
+// after them, in the same launch.
+//
+// Bound: bytes (6.37 MB in and 2.95 MB out wide, 1.97 MB at tier 16, per
+// headline chunk: 2-3 us), but a chunk is one wave of short blocks, so
+// what costs is each block's chain of latencies, the samples' integer work
+// (about half the time at the headline: PERF.md) and the launches.  The
+// design (output_stage.cuh's tile bodies):
+//   * a block is a tile of 32 chains (a warp's lanes: its series loads
+//     are 128 contiguous bytes, whole sectors) x 16 samples of one frame,
+//     256 threads of 2 samples each; 320 blocks at the headline chunk;
+//   * every load is issued before the first shared store: the thread's
+//     channels, the tile's frame tables (13 loads a thread, widened into
+//     shared memory, where the runtime slot count indexes them with no
+//     stack frame), its bypass bytes and frame seeds;
+//   * no serial LFSR: warp 0 jumps each chain's frame seed to the strip's
+//     start by one table of M^(16q) in constant memory (the step is
+//     GF(2)-linear), and each thread steps at most 14 times from there;
+//   * each chain's run of output bytes is staged in shared memory (an
+//     odd-word pitch: no bank conflicts) and stored as 16-byte vectors;
+//   * the output form is a template parameter, so a sample's byte loop
+//     unrolls and only the narrow forms test the tiers;
+//   * the WAVE permutation, the same for every sample, goes through 8
+//     shared words of the thread's own (8 stores, C_out loads) instead
+//     of an 8-way select per output channel;
+//   * K234n folds the fits test into the same launch: each warp ORs its
+//     misfit bits (__reduce_or_sync) into the block's word, and each block
+//     adds its ticket and the tiers it misses to the chunk's 64-bit counter
+//     in one atomicAdd; the block whose add completes the count (as in
+//     CUDA's threadFenceReduction sample, but the counter itself carries
+//     the bits, so no fence) writes the 8 flag rows and zeroes the counter
+//     for the next launch.  The caller keeps the counter per stream, zeroed
+//     once.  Sums of 0/1: the flag does not depend on the blocks' order.
 #include <cuda_runtime.h>
 
 #include "output_stage.cuh"
 
 namespace {
 
-constexpr int kThreads = 512;  // CT * Ls at most
-constexpr int kStrip = 160;    // samples of a frame a block holds at once
-constexpr int kMaxTile = 32;   // chains of a tile at most
-constexpr int kMaxRow = 32;    // output bytes of a sample at most (8 x 4)
-constexpr int kItems = 4;      // table items a thread loads at once
+constexpr unsigned long long kTicketMask = (1ull << 21) - 1;
+// a thread's 8 permutation words, at an odd pitch: the lanes' stores of
+// one channel and loads of one WAVE slot fall in 32 banks
+constexpr int kOutPickPitch = 9;
 
-// The output word at byte a from the staged run [gs, ge) (staged[0] is
-// byte gs); bytes outside the run belong to other chain-frames.
-__device__ __forceinline__ void store_word(uint8_t* __restrict__ out,
-                                           int64_t a, int64_t gs, int64_t ge,
-                                           const uint8_t* staged) {
-  if (a >= gs && a + 4 <= ge) {
-    const uint8_t* p = staged + (a - gs);
-    *reinterpret_cast<uint32_t*>(out + a) =
-        p[0] | (uint32_t)p[1] << 8 | (uint32_t)p[2] << 16 |
-        (uint32_t)p[3] << 24;
-    return;
-  }
-  for (int k = 0; k < 4; ++k)
-    if (a + k >= gs && a + k < ge) out[a + k] = staged[a + k - gs];
-}
-
-__global__ void __launch_bounds__(kThreads) output_stage_kernel(
-    int Bc, int fpc, int L0, int tile_log2, int Ls, int C_tot, int C_out,
-    int n_mats, int form, const int32_t* __restrict__ series,
+template <int kForm>
+__global__ void __launch_bounds__(kOutThreads) output_stage_kernel(
+    int Bc, int fpc, int L0, int C_tot, int C_out, int n_mats, int tier, const int32_t* __restrict__ series,
     const int32_t* __restrict__ frame_seed,
     const int8_t* __restrict__ frame_nshift, const int8_t* __restrict__ byp,
     const int16_t* __restrict__ mat_coeff,
@@ -72,112 +63,96 @@ __global__ void __launch_bounds__(kThreads) output_stage_kernel(
     const int8_t* __restrict__ mat_quant,
     const int8_t* __restrict__ out_shift,
     const int8_t* __restrict__ wave_perm, uint8_t* __restrict__ out,
-    uint32_t* __restrict__ misfit) {
-  __shared__ DvdaOutFrame s_fr[kMaxTile];
-  __shared__ uint32_t s_seed[kThreads];
-  __shared__ uint32_t s_words[kThreads * kMaxRow / 4];
+    uint32_t* __restrict__ scratch) {
+  __shared__ DvdaOutFrame s_fr[kOutTileChains];
+  __shared__ uint32_t s_out[kOutTileChains * kOutPitch];
+  __shared__ uint8_t s_byp[kOutTileChains * kOutStrip];
+  __shared__ uint32_t s_seed[kOutTileChains];
+  __shared__ uint32_t s_pick[kOutThreads * kOutPickPitch];
   __shared__ int8_t s_perm[8];
-  uint8_t* const s_out = reinterpret_cast<uint8_t*>(s_words);
-  const int CT = 1 << tile_log2;
+  __shared__ uint32_t s_miss, s_flag;
+  __shared__ bool s_last;
   const int tid = threadIdx.x;
-  const int bl = tid & (CT - 1), i = tid >> tile_log2;
-  const int f = blockIdx.y, b0 = blockIdx.x << tile_log2;
-  const int nct = min(CT, Bc - b0);  // chains of this tile
-  const int row = output_stage_row_bytes(C_out, form);  // bytes a sample
-  const int64_t period = (int64_t)fpc * L0;
+  const int row = output_stage_row_bytes(C_out, kForm);
+  const DvdaOutTile t =
+      output_stage_tile(blockIdx.x, blockIdx.y, Bc, fpc, L0, row);
 
-  if (tid < C_out) s_perm[tid] = wave_perm[tid];
-  // the tile's frame tables, kItems items a thread in flight at once
-  const int items = nct * kOutFrameItems;
-  for (int k0 = tid; k0 < items; k0 += kItems * blockDim.x) {
-    int32_t v[kItems];
-#pragma unroll
-    for (int u = 0; u < kItems; ++u) {
-      const int k = k0 + u * blockDim.x, c = k / kOutFrameItems;
-      if (k < items)
-        v[u] = output_stage_item((int64_t)(b0 + c) * fpc + f,
-                                 k - c * kOutFrameItems, frame_nshift,
-                                 mat_coeff, mat_noise, mat_out, mat_active,
-                                 mat_quant, out_shift);
-    }
-#pragma unroll
-    for (int u = 0; u < kItems; ++u) {
-      const int k = k0 + u * blockDim.x, c = k / kOutFrameItems;
-      if (k < items) output_stage_set_item(s_fr[c], k - c * kOutFrameItems,
-                                           v[u]);
-    }
+  // every load in flight before the first shared store
+  DvdaOutInputs in;
+  output_stage_inputs(tid, t, series, Bc, C_tot, in);
+  DvdaOutTableLoads tab;
+  output_stage_table_loads(tid, t, fpc, frame_nshift, mat_coeff, mat_noise,
+                           mat_out, mat_active, mat_quant, out_shift, tab);
+  uint8_t bv[kOutBypPasses];
+  output_stage_byp_loads(tid, t, byp, bv);
+  const uint32_t seed0 =
+      tid < kOutTileChains ? output_stage_frame_seed(tid, t, fpc, frame_seed)
+                           : 0u;
+  const int8_t perm = tid < C_out ? wave_perm[tid] : 0;
+  output_stage_table_stores(tid, t, tab, s_fr);
+  output_stage_byp_stores(tid, bv, s_byp);
+  if (tid < kOutTileChains) s_seed[tid] = dvda_lfsr_at(seed0, t.i0);
+  if (tid < C_out) s_perm[tid] = perm;
+  if (tid == 0) s_miss = 0;
+  __syncthreads();
+  uint32_t miss = output_stage_samples<kForm>(
+      tid, t, in, s_fr, s_seed, s_byp, s_perm, n_mats, C_out,
+      s_pick + tid * kOutPickPitch, s_out);
+  __syncthreads();
+  const int items = t.nct * output_stage_vectors(t);
+  for (int k = tid; k < items; k += kOutThreads)
+    output_stage_store(k, t, s_out, out);
+  if (scratch == nullptr) return;  // K234: no fits test
+
+  // K234n: the block's misfit bits and its ticket in one 64-bit atomicAdd
+  // on the chunk's counter (bits 0-20 the blocks, 21-41 those that miss
+  // 12 bits, 42-62 those that miss int16).  Its result tells the block that
+  // comes last the whole chunk's bits, so no fence is needed; that block
+  // zeroes the counter for the next launch and writes the flag rows.
+  miss = __reduce_or_sync(0xffffffffu, miss);
+  if ((tid & 31) == 0 && miss) atomicOr(&s_miss, miss);
+  __syncthreads();
+  if (tid == 0) {
+    const unsigned long long add = 1ull |
+                                   (unsigned long long)(s_miss & 1u) << 21 |
+                                   (unsigned long long)(s_miss >> 1) << 42;
+    unsigned long long* counter =
+        reinterpret_cast<unsigned long long*>(scratch);
+    const unsigned long long sum = atomicAdd(counter, add) + add;
+    s_last = (sum & kTicketMask) == gridDim.x * gridDim.y;
+    s_flag = ((sum >> 21) & kTicketMask ? 1u : 0u) |
+             ((sum >> 42) & kTicketMask ? 2u : 0u);
+    if (s_last) *counter = 0;
   }
-  uint32_t miss = 0;  // the narrow tiers this thread's samples miss
-  uint32_t seed =
-      tid < nct ? (uint32_t)frame_seed[(int64_t)(b0 + tid) * fpc + f] : 0u;
-  for (int i0 = 0; i0 < L0; i0 += Ls) {
-    const int ns = min(Ls, L0 - i0);
-    if (tid < nct)
-      for (int k = 0; k < ns; ++k) {
-        s_seed[k * CT + tid] = seed;
-        seed = dvda_lfsr_step(seed);
-      }
-    const bool live = bl < nct && i < ns;
-    const int64_t t = (int64_t)f * L0 + i0 + i;  // in-chain time
-    int32_t ch[8];
-    uint32_t bits = 0;
-    if (live) {
-      output_stage_channels(series, t, Bc, C_tot, b0 + bl, ch);
-      bits = (uint8_t)byp[(int64_t)(b0 + bl) * period + t];
-    }
-    __syncthreads();
-    if (live)
-      miss |= output_stage_sample(s_fr[bl], s_seed[i * CT + bl], n_mats, ch,
-                                  bits, s_perm, C_out, form,
-                                  s_out + (bl * Ls + i) * row);
-    __syncthreads();
-    // chain c's run of ns samples starts at output byte gs; its words
-    const int run = ns * row, wpc = (run >> 2) + 2;
-    for (int w = tid; w < nct * wpc; w += blockDim.x) {
-      const int c = w / wpc;
-      const int64_t gs =
-          ((int64_t)(b0 + c) * period + (int64_t)f * L0 + i0) * row;
-      const int64_t a = ((gs >> 2) + (w - c * wpc)) << 2;
-      if (a < gs + run) store_word(out, a, gs, gs + run, s_out + c * Ls * row);
-    }
-    __syncthreads();
-  }
-  if (misfit) {  // narrow: the block's misfit bits into the chunk's word
-    const int m12 = __syncthreads_or(miss & 1u);
-    const int m16 = __syncthreads_or(miss & 2u);
-    if (tid == 0 && (m12 | m16))
-      atomicOr(misfit, (m12 ? 1u : 0u) | (m16 ? 2u : 0u));
-  }
+  __syncthreads();
+  if (!s_last) return;
+  uint8_t* flags = out + (int64_t)Bc * t.period * row;
+  for (int k = tid; k < 8 * row; k += kOutThreads)
+    flags[k] = output_stage_narrow_flag(s_flag, tier);
 }
 
-// The 8 flag rows after the narrow rows: every byte the chunk's flag.
-__global__ void output_stage_narrow_kernel(const uint32_t* __restrict__ misfit,
-                                           int tier, uint8_t* __restrict__ rows,
-                                           int n) {
-  const int k = blockIdx.x * blockDim.x + threadIdx.x;
-  if (k < n) rows[k] = output_stage_narrow_flag(*misfit, tier);
-}
-
-// One K234 launch in ``form`` (misfit null: no fits test).
+// One launch in ``form`` (scratch null: no fits test).
 int launch_output_stage(
     const int32_t* series, const int32_t* frame_seed,
     const int8_t* frame_nshift, const int8_t* byp, const int16_t* mat_coeff,
     const int16_t* mat_noise, const int8_t* mat_out, const int8_t* mat_active,
     const int8_t* mat_quant, const int8_t* out_shift, const int8_t* wave_perm,
-    uint8_t* out, uint32_t* misfit, int Bc, int fpc, int L0, int C_tot,
-    int C_out, int n_mats, int form, cudaStream_t stream) {
-  if (fpc > 65535 || C_out < 1 || C_out > 8 || n_mats < 0 || n_mats > 6)
+    uint8_t* out, uint32_t* scratch, int Bc, int fpc, int L0, int C_tot,
+    int C_out, int n_mats, int form, int tier, cudaStream_t stream) {
+  const int64_t x = (int64_t)fpc * output_stage_strips(L0);
+  const int y = (Bc + kOutTileChains - 1) / kOutTileChains;
+  if (C_tot < 1 || C_tot > 8 || C_out < 1 || C_out > 8 || n_mats < 0 ||
+      n_mats > 6 || x > 0x7FFFFFFF || y > 65535 ||
+      x * y > (scratch ? (long long)kTicketMask : 0xFFFFFFFFll))
     return (int)cudaErrorInvalidValue;
-  const int Ls = L0 < kStrip ? L0 : kStrip;
-  int tile_log2 = 0;  // the most chains, up to 32, that fit the threads
-  while ((1 << (tile_log2 + 1)) <= kMaxTile &&
-         (Ls << (tile_log2 + 1)) <= kThreads)
-    ++tile_log2;
-  const dim3 blocks((Bc + (1 << tile_log2) - 1) >> tile_log2, fpc);
-  output_stage_kernel<<<blocks, Ls << tile_log2, 0, stream>>>(
-      Bc, fpc, L0, tile_log2, Ls, C_tot, C_out, n_mats, form, series,
-      frame_seed, frame_nshift, byp, mat_coeff, mat_noise, mat_out,
-      mat_active, mat_quant, out_shift, wave_perm, out, misfit);
+  auto kernel = form == 2   ? output_stage_kernel<2>
+                : form == 3 ? output_stage_kernel<3>
+                : form == 4 ? output_stage_kernel<4>
+                            : output_stage_kernel<kNarrow12>;
+  kernel<<<dim3((unsigned)x, y), kOutThreads, 0, stream>>>(
+      Bc, fpc, L0, C_tot, C_out, n_mats, tier, series, frame_seed,
+      frame_nshift, byp, mat_coeff, mat_noise, mat_out, mat_active, mat_quant,
+      out_shift, wave_perm, out, scratch);
   return (int)cudaGetLastError();
 }
 
@@ -198,35 +173,28 @@ extern "C" int dvda_output_stage(
   return launch_output_stage(
       series, frame_seed, frame_nshift, byp, mat_coeff, mat_noise, mat_out,
       mat_active, mat_quant, out_shift, wave_perm, out, nullptr, Bc, fpc, L0,
-      C_tot, C_out, n_mats, nbytes ? nbytes : 4, (cudaStream_t)stream);
+      C_tot, C_out, n_mats, nbytes ? nbytes : 4, 0, (cudaStream_t)stream);
 }
 
 // K234n: the narrow rows of tier 12 or 16 into out[0, Bc*period), then 8
 // flag rows, out being uint8 [Bc*period + 8, row] (row: C_out*2 at tier
-// 16, C_out/2*3 at tier 12).  ``misfit`` is one device word of scratch,
-// zeroed here.  Three operations on ``stream``; never synchronises.
+// 16, C_out/2*3 at tier 12).  ``scratch`` is two device words (one 8-byte
+// aligned 64-bit counter), zero on entry, that the launch leaves zero: the
+// caller keeps one pair per stream (launches on one stream run in order).
+// At most 2^21 - 1 blocks.  One launch on ``stream``; never synchronises.
 extern "C" int dvda_output_stage_narrow(
     const int32_t* series, const int32_t* frame_seed,
     const int8_t* frame_nshift, const int8_t* byp, const int16_t* mat_coeff,
     const int16_t* mat_noise, const int8_t* mat_out, const int8_t* mat_active,
     const int8_t* mat_quant, const int8_t* out_shift, const int8_t* wave_perm,
-    uint8_t* out, uint32_t* misfit, int Bc, int fpc, int L0, int C_tot,
+    uint8_t* out, uint32_t* scratch, int Bc, int fpc, int L0, int C_tot,
     int C_out, int n_mats, int tier, void* stream) {
   if (Bc <= 0 || fpc <= 0 || L0 <= 0) return 0;
   if (!(tier == 16 || (tier == kNarrow12 && C_out % 2 == 0)))
     return (int)cudaErrorInvalidValue;
-  const cudaStream_t s = (cudaStream_t)stream;
-  cudaError_t rc = cudaMemsetAsync(misfit, 0, sizeof(uint32_t), s);
-  if (rc != cudaSuccess) return (int)rc;
-  const int form = tier == 16 ? 2 : kNarrow12;
-  const int err = launch_output_stage(
+  return launch_output_stage(
       series, frame_seed, frame_nshift, byp, mat_coeff, mat_noise, mat_out,
-      mat_active, mat_quant, out_shift, wave_perm, out, misfit, Bc, fpc, L0,
-      C_tot, C_out, n_mats, form, s);
-  if (err) return err;
-  const int row = output_stage_row_bytes(C_out, form);
-  const int n = 8 * row;
-  output_stage_narrow_kernel<<<1, (n + 31) / 32 * 32, 0, s>>>(
-      misfit, tier, out + (int64_t)Bc * fpc * L0 * row, n);
-  return (int)cudaGetLastError();
+      mat_active, mat_quant, out_shift, wave_perm, out, scratch, Bc, fpc, L0,
+      C_tot, C_out, n_mats, tier == 16 ? 2 : kNarrow12, tier,
+      (cudaStream_t)stream);
 }

@@ -180,6 +180,19 @@ def output_stage_reference(series, frame_seed, frame_nshift, byp, mat_coeff,
     return pk.to(torch.uint8).reshape(Bc * period, C_out * nbytes)
 
 
+#: K234n's scratch per (device, stream): two words, the kernel's 64-bit
+#: counter of blocks and misfit bits.  Zeroed once when made; each launch
+#: leaves it zero, and launches on one stream run in order.
+_SCRATCH: dict = {}
+
+
+def _narrow_scratch(dev: torch.device, stream: int) -> torch.Tensor:
+    key = (dev.index, stream)
+    if key not in _SCRATCH:
+        _SCRATCH[key] = torch.zeros(2, dtype=torch.int32, device=dev)
+    return _SCRATCH[key]
+
+
 def _launch(series, frame_seed, frame_nshift, byp, mat_coeff, mat_noise,
             mat_out, mat_active, mat_quant, out_shift, wave_perm, chains,
             n_mats, nbytes, tier):
@@ -205,7 +218,6 @@ def _launch(series, frame_seed, frame_nshift, byp, mat_coeff, mat_noise,
         row = C_out * 2 if tier == 16 else C_out // 2 * 3
         out = torch.empty((Bc * period + 8, row), dtype=torch.uint8,
                           device=dev)
-        misfit = torch.empty(1, dtype=torch.int32, device=dev)
     elif nbytes:
         out = torch.empty((Bc * period, C_out * nbytes), dtype=torch.uint8,
                           device=dev)
@@ -219,9 +231,10 @@ def _launch(series, frame_seed, frame_nshift, byp, mat_coeff, mat_noise,
             out_shift.data_ptr(), wave_perm.data_ptr(), out.data_ptr())
     if tier:
         with torch.cuda.device(dev):
+            stream = current_stream(dev)
             rc = lib.dvda_output_stage_narrow(
-                *ptrs, misfit.data_ptr(), Bc, fpc, L0, C_tot, C_out, n_mats,
-                tier, current_stream(dev))
+                *ptrs, _narrow_scratch(dev, stream).data_ptr(), Bc, fpc, L0,
+                C_tot, C_out, n_mats, tier, stream)
             output_stage.narrow_launches += 1
         raise_on_error(rc, "output_stage_narrow")
         return out

@@ -6,7 +6,7 @@ re-exported here.  :func:`filter_inputs` and :func:`output_stage_inputs` make
 seeded random inputs for kernels K1 and K234 in their call layouts, and
 :func:`huffman_inputs` and :func:`huffman_worst_case` (the widest
 symbols) those of kernel K5, :func:`general_inputs` the tables of the
-general path (K6a, K1, K6b).  :func:`encrypt_sectors_batch` CPPM-encrypts
+general path (K6a, K1, K6b), at K6b's edges with :data:`SERIES_REMIX_EDGES`.  :func:`encrypt_sectors_batch` CPPM-encrypts
 a disc's sectors (the inverse of kernel K7), vectorised across sectors,
 :func:`cppm_sector_mix` adds the edge cases of K7's CCI walk, and
 :func:`c2_edge_batch` lays them out at the batch sizes of
@@ -30,6 +30,7 @@ __all__ = ["MlpSynthConfig", "synth_mlp_stream", "MlpTrackSpec",
            "narrow_stage_inputs", "NARROW_EDGES", "NARROW_RANGES",
            "huffman_inputs", "huffman_worst_case", "huffman_edge_inputs",
            "FILTER_EDGES", "HUFFMAN_EDGES", "general_inputs",
+           "SERIES_REMIX_EDGES",
            "encrypt_sectors_batch",
            "cppm_sector_mix", "C2_EDGES", "c2_edge_batch", "PCM_EDGES"]
 
@@ -265,10 +266,16 @@ def output_stage_inputs(seed: int, chains: int, fpc: int, L0: int,
 
 #: K234 edge shapes (chains, fpc, L0, C_tot, C_out, n_mats, nbytes,
 #: extreme) for :func:`output_stage_inputs`: chain counts off the kernel's
-#: tile, the frame lengths of 48/96/192 kHz (L0 40, 80, 160) and one past
-#: a 160-sample strip, C_out below C_tot, 0-6 matrix slots, every output
-#: form, the int32 extremes
+#: 32-chain tile and on it (1, 3, 5, 7, 31, 33, 40, 64), frame lengths off
+#: its 16-sample strip (8, 24, 40, 56, 200) and on it (80, 160: 48/96/192
+#: kHz are 40, 80, 160), output runs that start off a 16-byte boundary,
+#: C_tot 1 and 8, C_out below C_tot, 0-6 matrix slots, every output form,
+#: the int32 extremes
 OUTPUT_STAGE_EDGES = (
+    (31, 3, 24, 1, 2, 2, 3, False),
+    (64, 2, 8, 8, 8, 6, 3, True),
+    (1, 5, 40, 6, 6, 3, 3, False),
+    (40, 3, 56, 5, 4, 6, 0, True),
     (33, 2, 40, 8, 6, 6, 3, True),
     (33, 2, 80, 6, 2, 3, 2, False),
     (33, 1, 160, 4, 3, 0, 0, True),
@@ -316,6 +323,50 @@ LANE_PACK_EDGES = (
 )
 
 
+def _starts_long(T: int) -> list:
+    """Frames longer than K6b's 512-row tile."""
+    return [0, 5, 700, 1900, T]
+
+
+def _starts_empty(T: int) -> list:
+    """Runs of empty frames at the start, at K6b's tile edge (rows 512 and
+    1024) and across it, and at the end."""
+    return ([0, 0, 0, 100, 300, 510] + [512] * 4 + [515, 1020]
+            + [1023] * 3 + [1030, 1500] + [T] * 3)
+
+
+def _starts_dense(T: int) -> list:
+    """Frames of 1-7 rows over the first 1,200 rows (more in one tile than
+    the 16 a piece stages), runs of up to 20 empty frames among them
+    (across a piece), then one frame to the end."""
+    rng = np.random.default_rng(T)
+    starts, t = [0], 0
+    while t < 1200:
+        t += int(rng.integers(1, 8))
+        starts += [t] * (20 if len(starts) == 40 else 1)
+    return starts + [T]
+
+
+def _starts_one(T: int) -> list:
+    return [0, T]
+
+
+#: K6b edge cases (name, n_ch, n_blocks, S, extreme, frame_starts) for
+#: :func:`general_inputs` (seed 0): T off the kernel's 512-row tile
+#: (2,000-2,600 rows), frames longer than a tile, runs of empty frames (at
+#: the start, at and across a tile edge, at the end), more frames in one
+#: tile than a 16-frame piece holds, one frame only, one and two
+#: substreams, the int32 extremes
+SERIES_REMIX_EDGES = (
+    ("long", (2, 4), 120, 40, False, _starts_long),
+    ("empty", (6,), 120, 40, True, _starts_empty),
+    ("dense", (2, 4), 120, 40, True, _starts_dense),
+    ("one", (2, 4), 110, 40, False, _starts_one),
+    ("long-1sub", (5,), 100, 40, True, _starts_long),
+    ("dense-1sub", (3,), 130, 40, False, _starts_dense),
+)
+
+
 def frame_remix_inputs(seed: int, F: int, L: int, C: int, C_out: int,
                        extreme: bool = False, edges: bool = False) -> list:
     """Positional arguments of ``frame_remix`` (all but ``n_mats``) as
@@ -356,12 +407,13 @@ def frame_remix_inputs(seed: int, F: int, L: int, C: int, C_out: int,
 
 def general_inputs(seed: int, n_blocks: int = 24, S: int = 8,
                    n_ch: tuple = (2, 4), F: int = 6,
-                   extreme: bool = False) -> tuple:
+                   extreme: bool = False, frame_starts=None) -> tuple:
     """(subs, frames): numpy arguments of ``general_pipeline`` for
     synthetic parse arrays — ``n_blocks`` blocks of 1..``S`` samples,
     random restarts (some coupled, so chains differ in length), one
     substream per entry of ``n_ch``, and ``F`` frames over the samples,
-    one of them empty.  ``extreme`` takes the int32 extremes of
+    one of them empty, or the frames whose starts (with T last) the
+    callable ``frame_starts(T)`` gives.  ``extreme`` takes the int32 extremes of
     tests/test_pallas_filter.py:33-50 (full-range residuals, 16-bit taps)
     and of the matrix chain (full-range coefficients and noise, output
     shifts up to 31) through the whole path."""
@@ -371,6 +423,9 @@ def general_inputs(seed: int, n_blocks: int = 24, S: int = 8,
     lens = rng.integers(1, S + 1, n_blocks).astype(np.int32)
     lens[0] = S
     T = int(lens.sum())
+    if frame_starts is not None:
+        given = np.asarray(frame_starts(T), np.int64)
+        F = len(given) - 1
     restart = rng.random(n_blocks) < 0.3
     restart[0] = True
     i32 = np.int32
@@ -398,8 +453,11 @@ def general_inputs(seed: int, n_blocks: int = 24, S: int = 8,
                "shift": shift.astype(i32), "quant": quant.astype(i32),
                "iir_reset": rng.random((n_blocks, nc)) < 0.5}
         subs.append(substream_tables(sub, F, T))
-    cuts = np.sort(rng.choice(np.arange(1, T), F - 2, replace=False))
-    starts = np.concatenate([[0], cuts[:1], cuts, [T]]).astype(np.int64)
+    if frame_starts is None:
+        cuts = np.sort(rng.choice(np.arange(1, T), F - 2, replace=False))
+        starts = np.concatenate([[0], cuts[:1], cuts, [T]]).astype(np.int64)
+    else:
+        starts = given
     C = sum(n_ch)
     if extreme:
         coeff = rng.choice([-2**15, -2**15 + 1, -1, 0, 1, 2**15 - 1],

@@ -43,7 +43,8 @@ from dvda_tpu_torch.testutil import (BPS_CODE, C2_EDGES, FILTER_EDGES,
                                      NARROW_RANGES,
                                      OUTPUT_STAGE_EDGES, RATE_CODE,
                                      MlpSynthConfig, MlpTrackSpec,
-                                     PcmTrackSpec, build_disc,
+                                     PcmTrackSpec, SERIES_REMIX_EDGES,
+                                     build_disc,
                                      cppm_sector_mix, encrypt_sectors_batch,
                                      filter_inputs, frame_remix_inputs,
                                      general_inputs, huffman_inputs,
@@ -152,6 +153,19 @@ def test_narrow_kernel_fits_edges(dev, lo, hi, flag12, flag16, tier):
     assert flag == (flag12 if tier == 12 else flag16)
 
 
+@pytest.mark.parametrize("tier", [12, 16])
+def test_narrow_kernel_resets_its_scratch(dev, tier):
+    """Two K234n launches in a row on one stream: a chunk that misses both
+    tiers, then one that fits both.  The second flag is the second chunk's
+    own (3 at tier 12, 1 at tier 16): the first launch's last block left
+    the stream's misfit word and ticket at zero."""
+    loud = narrow_stage_inputs(7, 70, 4, 80, 6, 6, -32769, 32768)
+    quiet = narrow_stage_inputs(8, 70, 4, 80, 6, 6, -2048, 2047)
+    assert _narrow_kernel_check(dev, loud, 70, 6, tier) == 0
+    assert _narrow_kernel_check(dev, quiet, 70, 6, tier) == (
+        3 if tier == 12 else 1)
+
+
 @pytest.mark.parametrize("huffman", [False, True])
 @pytest.mark.parametrize("shifts,tier", [((0, 1), 12), ((5, 6), 16),
                                          ((7, 8), 0)])
@@ -247,6 +261,25 @@ def test_series_remix_kernel_matches_plain(dev, extreme, n_ch):
         outs.append((torch.randint(-2**31, 2**31 - 1, shape, generator=gen,
                                    dtype=torch.int32).to(dev),
                      u["series_idx"], u["shift"].shape[1]))
+    before = series_remix.launches
+    got = series_remix(outs, *frames)
+    assert series_remix.launches == before + 1
+    assert torch.equal(got, series_remix_reference(outs, *frames))
+
+
+@pytest.mark.parametrize("edge", SERIES_REMIX_EDGES, ids=lambda e: e[0])
+def test_series_remix_kernel_edge_cases(dev, edge):
+    """K6b's tiles at its edges (testutil.SERIES_REMIX_EDGES) on full-range
+    K1 outputs, against the plain version."""
+    name, n_ch, n_blocks, S, extreme, starts = edge
+    subs, frames = _general_tables(dev, seed=0, n_blocks=n_blocks, S=S,
+                                   n_ch=n_ch, extreme=extreme,
+                                   frame_starts=starts)
+    gen = torch.Generator(device="cpu").manual_seed(len(name))
+    outs = [(torch.randint(-2**31, 2**31 - 1, (u["bidx"].shape[1], u["S"],
+                                                u["bidx"].shape[0] * nc),
+                           generator=gen, dtype=torch.int32).to(dev),
+             u["series_idx"], nc) for u, nc in zip(subs, n_ch)]
     before = series_remix.launches
     got = series_remix(outs, *frames)
     assert series_remix.launches == before + 1

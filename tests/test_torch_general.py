@@ -14,8 +14,11 @@ from dvda_tpu.config import DecodeConfig as JaxConfig
 from dvda_tpu_torch import DecodeConfig, host
 from dvda_tpu_torch.codecs.mlp import native_engine as pe
 from dvda_tpu_torch.codecs.params import StreamParameters
-from dvda_tpu_torch.ops.general_gather import general_pipeline_reference
-from dvda_tpu_torch.testutil import (BPS_CODE, RATE_CODE, MlpSynthConfig,
+from dvda_tpu.ops.rematrix import apply_output_stage, rematrix_frames
+from dvda_tpu_torch.ops.general_gather import (general_pipeline_reference,
+                                               series_remix_reference)
+from dvda_tpu_torch.testutil import (BPS_CODE, RATE_CODE, SERIES_REMIX_EDGES,
+                                     MlpSynthConfig, general_inputs,
                                      synth_mlp_stream)
 
 pytestmark = pytest.mark.skipif(
@@ -204,3 +207,55 @@ def test_substream_without_blocks_matches_jax(jax_pipeline_calls, empty):
         jinc.close()
     assert jax_pipeline_calls == [] and info["path"] == "general"
 
+
+
+def _jax_series_remix(outs, starts, noise01, bypassed, coeff, ncoef, mout,
+                      mact, mquant, out_shift, wave_perm):
+    """dvda_tpu's ``_pipeline`` after the filter
+    (dvda_tpu/codecs/mlp/native_engine.py:539-556) on the same K1 outputs:
+    the series gather, frame_idx / flat_idx built from the frame starts as
+    its general table build does (:1492-1502), rematrix_frames,
+    apply_output_stage and the flat_idx gather."""
+    import jax.numpy as jnp
+
+    T = noise01.shape[0]
+    rows = [o.reshape(-1)[idx + c] for o, idx, nc in outs for c in range(nc)]
+    series = np.zeros((8, T), np.int32)
+    series[:len(rows)] = rows
+    frame_len = np.diff(starts)
+    F, L = len(frame_len), int(frame_len.max())
+    frame_idx = np.minimum(starts[:-1, None] + np.arange(L)[None, :], T - 1)
+    f_of_t = np.repeat(np.arange(F), frame_len)
+    flat_idx = f_of_t * L + np.arange(T) - starts[f_of_t]
+    channels = series[:, frame_idx].transpose(1, 2, 0)
+    noise = noise01[frame_idx]
+    byp = ((bypassed[frame_idx][:, :, None] >> np.arange(6)) & 1)
+    ch = rematrix_frames(jnp.asarray(channels), jnp.asarray(noise),
+                         jnp.asarray(coeff), jnp.asarray(ncoef),
+                         jnp.asarray(mout), jnp.asarray(mact),
+                         jnp.asarray(mquant),
+                         jnp.asarray(byp.transpose(0, 2, 1).astype(np.int32)))
+    staged = np.asarray(apply_output_stage(ch, jnp.asarray(out_shift),
+                                           jnp.asarray(wave_perm)))
+    return staged.reshape(-1, staged.shape[-1])[flat_idx]
+
+
+@pytest.mark.parametrize("edge", SERIES_REMIX_EDGES, ids=lambda e: e[0])
+def test_series_remix_edges_match_jax(edge):
+    """K6b's edge cases (testutil.SERIES_REMIX_EDGES: frames longer than
+    its 512-row tile, runs of empty frames, more frames in a tile than a
+    16-frame piece, one frame, one and two substreams, the int32
+    extremes), the port's plain version against dvda_tpu's frame-major
+    program on the same full-range K1 outputs."""
+    name, n_ch, n_blocks, S, extreme, starts = edge
+    subs, frames = general_inputs(0, n_blocks=n_blocks, S=S, n_ch=n_ch,
+                                  extreme=extreme, frame_starts=starts)
+    rng = np.random.default_rng(len(name))
+    outs = [(rng.integers(-2**31, 2**31, (u["bidx"].shape[1], u["S"],
+                                          u["bidx"].shape[0] * nc),
+                          dtype=np.int64).astype(np.int32),
+             u["series_idx"], nc) for u, nc in zip(subs, n_ch)]
+    got = series_remix_reference(
+        [(torch.from_numpy(o), torch.from_numpy(i), nc) for o, i, nc in outs],
+        *map(torch.from_numpy, frames)).numpy()
+    assert np.array_equal(got, _jax_series_remix(outs, *frames))

@@ -4,8 +4,9 @@ PyTorch versions.
 csrc/huffman_decode.cuh, csrc/mlp_filter.cuh, csrc/output_stage.cuh,
 csrc/pcm_unpack.cuh, csrc/c2_decrypt.cuh, csrc/general_gather.cuh and
 csrc/frame_remix.cuh hold the per-lane code that nvcc compiles into the
-card's kernels; csrc/cpu_harness.cc wraps the same bodies in a serial loop
-for g++.  This is the only check of the kernels'
+card's kernels; csrc/cpu_harness.cc runs the same bodies for g++, tile by
+tile and, within a tile, phase by phase for each thread as the kernel's
+barriers order them.  This is the only check of the kernels'
 arithmetic that runs without a card.  Tolerance: 0 (integer decode).
 """
 
@@ -24,7 +25,8 @@ from dvda_tpu.cppm.c2 import SBOX, SBOX_F
 from dvda_tpu.cppm.decrypt import CppmDecryptor
 from dvda_tpu_torch.ops.c2_decrypt import decrypt_sectors_reference
 from dvda_tpu_torch.ops.general_gather import (general_pipeline_reference,
-                                               lane_pack_reference)
+                                               lane_pack_reference,
+                                               series_remix_reference)
 from dvda_tpu_torch.ops.huffman_decode import decode_residuals_reference
 from dvda_tpu_torch.ops.mlp_filter import mlp_filter_blocks_tl_reference
 from dvda_tpu_torch.ops.pcm_unpack import decode_chunks_reference
@@ -34,7 +36,8 @@ from dvda_tpu_torch.ops.rematrix import (apply_output_stage_reference,
 from dvda_tpu_torch.testutil import (C2_EDGES, FILTER_EDGES, HUFFMAN_EDGES,
                                      LANE_PACK_EDGES, NARROW_EDGES,
                                      NARROW_RANGES, OUTPUT_STAGE_EDGES,
-                                     PCM_EDGES, c2_edge_batch,
+                                     PCM_EDGES, SERIES_REMIX_EDGES,
+                                     c2_edge_batch,
                                      MlpSynthConfig, MlpTrackSpec,
                                      PcmTrackSpec, build_disc,
                                      cppm_sector_mix, filter_inputs,
@@ -81,7 +84,9 @@ def harness(tmp_path_factory):
     lib.cpu_frame_remix.argtypes = [p] * 10 + [i] * 5 + [ctypes.c_uint]
     lib.cpu_series_remix.restype = None
     lib.cpu_series_remix.argtypes = ([p, p, i, p, p, i] + [p] * 11
-                                     + [i64, i, i])
+                                     + [i64, i, i, p])
+    lib.cpu_lfsr_at.restype = None
+    lib.cpu_lfsr_at.argtypes = [p, i, i64, i, p]
     return lib
 
 
@@ -538,10 +543,68 @@ def test_general_path_body_matches_plain(harness, extreme, n_ch):
     F = frames[0].shape[0] - 1
     fr = [np.ascontiguousarray(f).view(np.uint8) if f.dtype == bool
           else np.ascontiguousarray(f) for f in frames]
-    got = np.full((T, len(fr[-1])), 7, np.int32)
-    harness.cpu_series_remix(_ptr(o0), _ptr(i0), c0, _ptr(o1), _ptr(i1), c1,
-                             *[_ptr(f) for f in fr], _ptr(got), T, F,
-                             len(fr[-1]))
+    got = _series_remix_body(harness, outs, frames)[0]
     ref = general_pipeline_reference(*_torch_tables(subs, frames)).numpy()
     assert np.array_equal(got, ref)
     assert (ref < 0).any() and (ref > 0).any()
+
+
+def _series_remix_body(harness, outs, frames):
+    """K6b's body through the kernel's 512-row tiles: (rows, pieces run)."""
+    (o0, i0, c0), (o1, i1, c1) = (outs + [(outs[0][0], outs[0][1], 0)])[:2]
+    T = frames[1].shape[0]
+    F = frames[0].shape[0] - 1
+    fr = [np.ascontiguousarray(f).view(np.uint8) if f.dtype == bool
+          else np.ascontiguousarray(f) for f in frames]
+    got = np.full((T, len(fr[-1])), 7, np.int32)
+    pieces = np.zeros(1, np.int32)
+    harness.cpu_series_remix(_ptr(o0), _ptr(i0), c0, _ptr(o1), _ptr(i1), c1,
+                             *[_ptr(f) for f in fr], _ptr(got), T, F,
+                             len(fr[-1]), _ptr(pieces))
+    return got, int(pieces[0])
+
+
+@pytest.mark.parametrize("edge", SERIES_REMIX_EDGES, ids=lambda e: e[0])
+def test_series_remix_body_edge_cases(harness, edge):
+    """K6b's tiles at its edges (T off the 512-row tile, frames longer
+    than a tile, runs of empty frames at the start, at and across a tile
+    edge and at the end, more frames in a tile than a 16-frame piece, one
+    frame, one and two substreams, the int32 extremes) on full-range K1
+    outputs, against the plain version."""
+    name, n_ch, n_blocks, S, extreme, starts = edge
+    subs, frames = general_inputs(0, n_blocks=n_blocks, S=S, n_ch=n_ch,
+                                  extreme=extreme, frame_starts=starts)
+    rng = np.random.default_rng(len(name))
+    outs = [(rng.integers(-2**31, 2**31, (u["bidx"].shape[1], u["S"],
+                                          u["bidx"].shape[0] * nc),
+                          dtype=np.int64).astype(np.int32),
+             np.ascontiguousarray(u["series_idx"]), nc)
+            for u, nc in zip(subs, n_ch)]
+    T = frames[1].shape[0]
+    got, pieces = _series_remix_body(harness, outs, frames)
+    ref = series_remix_reference(
+        [(torch.from_numpy(o), torch.from_numpy(i), nc) for o, i, nc in outs],
+        *map(torch.from_numpy, frames)).numpy()
+    assert T % 512 and np.array_equal(got, ref)
+    tiles = -(-T // 512)
+    assert (pieces > tiles) == name.startswith("dense")
+
+
+@pytest.mark.parametrize("L0", [40, 80, 160, 200, 300])
+def test_lfsr_jump_matches_steps(harness, L0):
+    """K234's LFSR jump (dvda_lfsr_at: M^(16q) from the constant table,
+    then single steps; past 256 steps more than one jump) against
+    dvda_lfsr_step stepped serially, and against the step in numpy, at
+    every offset 0..L0-1 from 64 seeds."""
+    rng = np.random.default_rng(L0)
+    seeds = rng.integers(0, 2**32, 64, dtype=np.uint64).astype(np.uint32)
+    seeds[:2] = (0, 0xFFFFFFFF)
+    state = seeds.astype(np.uint64)
+    got, steps = np.empty_like(seeds), np.empty_like(seeds)
+    for i in range(L0):
+        harness.cpu_lfsr_at(_ptr(seeds), seeds.size, i, 0, _ptr(got))
+        harness.cpu_lfsr_at(_ptr(seeds), seeds.size, i, 1, _ptr(steps))
+        assert np.array_equal(got, steps), i
+        assert np.array_equal(got, state.astype(np.uint32)), i
+        sh = (state >> 7) & 0xFFFF
+        state = ((state << 16) ^ sh ^ (sh << 5)) & 0xFFFFFFFF

@@ -12,20 +12,28 @@ from dvda_tpu.ops import lfsr as jax_lfsr
 from dvda_tpu.ops.rematrix import apply_output_stage_tl, rematrix_frames_tl
 from dvda_tpu_torch.ops import lfsr
 from dvda_tpu_torch.ops.rematrix import output_stage
-from dvda_tpu_torch.testutil import output_stage_inputs
+from dvda_tpu_torch.testutil import (NARROW_EDGES, OUTPUT_STAGE_EDGES,
+                                     output_stage_inputs)
 
 torch.set_num_threads(1)
 
 Fc, L, C, Bc = 4, 8, 8, 8
 
 
-def _jax_output_stage(inp, n_mats, nbytes):
+def _jax_output_stage(inp, n_mats, nbytes, shape=(Fc, L, C, Bc), tier=0):
     """The JAX package's stages on the same arena arrays: noise per frame
-    from dvda_tpu.ops.lfsr, bypass bits, rematrix, output stage, pack."""
+    from dvda_tpu.ops.lfsr, bypass bits, rematrix, output stage, pack;
+    with ``tier``, the chunk program's narrow pack and flag rows
+    (dvda_tpu/codecs/mlp/native_engine.py:345-369)."""
+    Fc, L, C, Bc = shape
+
     def tlf(x):  # chain-major [Bc*Fc, ...] → [Fc, ..., Bc]
         return np.moveaxis(x.reshape((Bc, Fc) + x.shape[1:]), 0, -1)
 
     channels = inp["series"].reshape(Fc, L, C, Bc)
+    if C < 8:
+        channels = np.concatenate(
+            [channels, np.zeros((Fc, L, 8 - C, Bc), np.int32)], 2)
     seeds = tlf(inp["frame_seed"].view(np.uint32))
     nshift = tlf(inp["frame_nshift"])
     noise = np.zeros((Fc, L, 2, Bc), np.int32)
@@ -49,6 +57,20 @@ def _jax_output_stage(inp, n_mats, nbytes):
         ch, jnp.asarray(tlf(inp["out_shift"]).astype(i32)),
         jnp.asarray(inp["wave_perm"].astype(i32))))
     rows = staged.transpose(3, 0, 1, 2).reshape(Bc * Fc * L, -1)
+    if tier:
+        lo, hi = rows.min(), rows.max()
+        fits16 = int(lo >= -(1 << 15) and hi < (1 << 15))
+        if tier == 12:
+            c0, c1 = rows[:, 0::2], rows[:, 1::2]
+            pk = np.stack([c0 & 0xFF, ((c0 >> 8) & 0xF) | ((c1 & 0xF) << 4),
+                           (c1 >> 4) & 0xFF], 2)
+            flag = int(lo >= -(1 << 11) and hi < (1 << 11)) + 2 * fits16
+        else:
+            pk = np.stack([rows & 0xFF, (rows >> 8) & 0xFF], 2)
+            flag = fits16
+        narrow = pk.astype(np.uint8).reshape(rows.shape[0], -1)
+        return np.concatenate([narrow, np.full((8, narrow.shape[1]), flag,
+                                               np.uint8)])
     if nbytes == 0:
         return rows
     pk = np.stack([(rows >> (8 * k)) & 0xFF for k in range(nbytes)], 2)
@@ -74,6 +96,25 @@ def test_output_stage_fewer_matrices():
     got = output_stage(*map(torch.from_numpy, inp.values()), chains=Bc,
                        n_mats=2, nbytes=3).numpy()
     assert np.array_equal(got, _jax_output_stage(inp, 2, 3))
+
+
+@pytest.mark.parametrize("case", [(s, 0) for s in OUTPUT_STAGE_EDGES]
+                         + list(NARROW_EDGES),
+                         ids=lambda c: "-".join(map(str, c[0])) + f"-t{c[1]}")
+def test_output_stage_edges_match_jax(case):
+    """K234's (tier 0) and K234n's edge shapes (testutil's
+    OUTPUT_STAGE_EDGES, NARROW_EDGES), the plain version against the JAX
+    stages: ragged chain tiles and strips, C_tot 1 and 8, 0-6 slots,
+    every form and both narrow tiers with their flag rows."""
+    (Bc_, fpc, L0, C_tot, C_out, n_mats, nbytes, extreme), tier = case
+    nbytes = 3 if tier else nbytes
+    inp = output_stage_inputs(L0 + n_mats, Bc_, fpc, L0, C_tot, C_out,
+                              extreme=extreme)
+    got = output_stage(*map(torch.from_numpy, inp.values()), chains=Bc_,
+                       n_mats=n_mats, nbytes=nbytes, tier=tier).numpy()
+    ref = _jax_output_stage(inp, n_mats, nbytes, (fpc, L0, C_tot, Bc_),
+                            tier)
+    assert np.array_equal(got, ref)
 
 
 @pytest.mark.parametrize("seed", [0x1234567, 0xDEADBEEF, 1])

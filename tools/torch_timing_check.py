@@ -59,6 +59,17 @@ sectors (a track's tail batch), each call on its own fresh copy of the
 encrypted batch (K7 synthesises the smoke's CPPM disc: ~1.5 min of
 host); K8 on the smoke's 30 s 5.1/96k/24 PCM track and its 2.0/48k/16
 one, packed and int32.
+
+    python3 tools/torch_timing_check.py k234n PARENT
+    python3 tools/torch_timing_check.py k6b PARENT
+
+do the same for K234n and K6b, built alone from PARENT's
+``csrc/output_stage.cu`` or ``csrc/general_gather.cu``: K234n at the
+smoke's headline chunk at tiers 16 and 12 (the parent's call zeroes a
+fresh misfit word, runs its kernel and then its flag kernel; the change's
+is one launch on the stream's persistent scratch) and K234 wide, 24-bit,
+at the same chunk; K6b on K1's outputs of the smoke's churn disc
+(synthesised: ~70 s of host).
 """
 
 from __future__ import annotations
@@ -353,9 +364,10 @@ def _k1_launcher(fn, args):
     return call, outs
 
 
-def _churn_k1_args(smoke, dev) -> tuple:
-    """K1's arguments at the smoke's general-path disc's widest substream:
-    the disc's tables as the general path builds them, then K6a."""
+def _churn_general(smoke, dev) -> tuple:
+    """The smoke's general-path disc as the general path builds it on the
+    card: (K6a's outputs per substream, the substream tables, the frame
+    tables after K6b's ``outs``)."""
     import tempfile
 
     import numpy as np
@@ -379,11 +391,18 @@ def _churn_k1_args(smoke, dev) -> tuple:
         v = inc.view()
         F = ne._frame_cut(v.frame_end, np.asarray(bnd, dtype=np.int64),
                           probe_end)
-        subs, _ = ne.general_tables(v, F, frames, 6, dev)
+        subs, tabs = ne.general_tables(v, F, frames, 6, dev)
         packed = [lane_pack(u) for u in subs]
         torch.cuda.synchronize()
     finally:
         inc.close()
+    return packed, subs, tabs
+
+
+def _churn_k1_args(smoke, dev) -> tuple:
+    """K1's arguments at the smoke's general-path disc's widest substream:
+    the disc's tables as the general path builds them, then K6a."""
+    packed, _, _ = _churn_general(smoke, dev)
     p = max(packed, key=lambda p: p[0].shape[2])
     return (*p[:8], p[8], p[8])
 
@@ -577,6 +596,123 @@ def _k8_against(smoke, parent: str) -> int:
     return 0
 
 
+def _k234n_against(smoke, parent: str) -> int:
+    """K234n (tiers 16 and 12) and K234 (wide, 24-bit) here against the
+    parent's at the headline chunk (see the module note)."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from dvda_tpu_torch.kernels.build import kernel_library
+    from dvda_tpu_torch.ops.rematrix import _narrow_scratch
+    from dvda_tpu_torch.testutil import output_stage_inputs
+
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib = kernel_library()
+    fns = {"narrow": {"parent": _built_alone(
+        "k234n_parent", parent, "output_stage.cu",
+        "dvda_output_stage_narrow", [p] * 13 + [i] * 7 + [p]),
+        "change": lib.dvda_output_stage_narrow},
+        "wide": {"parent": _built_alone(
+            "k234_parent", parent, "output_stage.cu", "dvda_output_stage",
+            [p] * 12 + [i] * 7 + [p]),
+            "change": lib.dvda_output_stage}}
+    dev = torch.device("cuda", 0)
+    Bc, fpc, L0, C = 256, 8, 80, 6  # the smoke's headline chunk
+    args = [torch.from_numpy(v).to(dev) for v in
+            output_stage_inputs(1, Bc, fpc, L0, C, C, n_active=3).values()]
+    ptrs = [a.data_ptr() for a in args]
+    stream = torch.cuda.current_stream().cuda_stream
+    geom = (Bc, fpc, L0, C, C, 3)
+    for label, kind, tier in (("K234n tier 16", "narrow", 16),
+                              ("K234n tier 12", "narrow", 12),
+                              ("K234 wide, 24-bit", "wide", 0)):
+        row = C * 2 if tier == 16 else C // 2 * 3 if tier else C * 3
+        calls, outs = {}, {}
+        for who, fn in fns[kind].items():
+            out = torch.empty((Bc * fpc * L0 + (8 if tier else 0), row),
+                              dtype=torch.uint8, device=dev)
+            outs[who] = out
+
+            def call(fn=fn, out=out, who=who):
+                if not tier:
+                    rc = fn(*ptrs, out.data_ptr(), *geom, 3, stream)
+                else:  # the parent zeroes a fresh word; the change keeps
+                    # the stream's persistent pair at zero
+                    word = (torch.empty(1, dtype=torch.int32, device=dev)
+                            if who == "parent"
+                            else _narrow_scratch(dev, stream))
+                    rc = fn(*ptrs, out.data_ptr(), word.data_ptr(), *geom,
+                            tier, stream)
+                if rc:
+                    raise RuntimeError(f"{label} {who}: CUDA error {rc}")
+            calls[who] = call
+            call()
+        torch.cuda.synchronize()
+        if not torch.equal(outs["parent"], outs["change"]):
+            print(f"{label}: the outputs differ", flush=True)
+            return 1
+        flag = int(outs["change"][-1, -1]) if tier else None
+        ms = _alternate(smoke, calls, ("parent", "change", "change",
+                                       "parent"))
+        print(f"{label}, headline chunk {Bc} chains x {fpc} x {L0}: parent "
+              f"{ms['parent'][0]:.4f} / {ms['parent'][1]:.4f} ms, change "
+              f"{ms['change'][0]:.4f} / {ms['change'][1]:.4f} ms on the card "
+              f"(parent, change, change, parent); outputs equal"
+              + (f", flag {flag}" if tier else ""), flush=True)
+    return 0
+
+
+def _k6b_against(smoke, parent: str) -> int:
+    """K6b here against the parent's on the churn disc's K1 outputs (see
+    the module note)."""
+    import ctypes
+
+    import torch
+
+    from dvda_tpu_torch.kernels.build import kernel_library
+    from dvda_tpu_torch.ops.mlp_filter import mlp_filter_blocks_tl
+
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    fns = {"parent": _built_alone("k6b_parent", parent, "general_gather.cu",
+                                  "dvda_series_remix",
+                                  [p, p, i, p, p, i] + [p] * 11
+                                  + [i64, i, i, p]),
+           "change": kernel_library().dvda_series_remix}
+    dev = torch.device("cuda", 0)
+    packed, subs, tabs = _churn_general(smoke, dev)
+    outs = [(mlp_filter_blocks_tl(*q[:8], q[8], q[8])[0], u["series_idx"],
+             u["shift"].shape[1]) for q, u in zip(packed, subs)]
+    (o0, i0, n0), (o1, i1, n1) = (outs + [(outs[0][0], outs[0][1], 0)])[:2]
+    T, F, C_out = tabs[1].shape[0], tabs[0].shape[0] - 1, tabs[-1].shape[0]
+    stream = torch.cuda.current_stream().cuda_stream
+    calls, ys = {}, {}
+    for who, fn in fns.items():
+        y = torch.empty((T, C_out), dtype=torch.int32, device=dev)
+        ys[who] = y
+
+        def call(fn=fn, y=y):
+            rc = fn(o0.data_ptr(), i0.data_ptr(), n0, o1.data_ptr(),
+                    i1.data_ptr(), n1, *(t.data_ptr() for t in tabs),
+                    y.data_ptr(), T, F, C_out, stream)
+            if rc:
+                raise RuntimeError(f"K6b: CUDA error {rc}")
+        calls[who] = call
+        call()
+    torch.cuda.synchronize()
+    if not torch.equal(ys["parent"], ys["change"]):
+        print("K6b: the outputs differ", flush=True)
+        return 1
+    ms = _alternate(smoke, calls, ("parent", "change", "change", "parent"),
+                    20)
+    print(f"K6b churn disc, T={T} rows x {C_out} ch, {F} frames: parent "
+          f"{ms['parent'][0]:.4f} / {ms['parent'][1]:.4f} ms, change "
+          f"{ms['change'][0]:.4f} / {ms['change'][1]:.4f} ms on the card "
+          "(parent, change, change, parent); outputs equal", flush=True)
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -590,7 +726,8 @@ def main() -> int:
     if sys.argv[1:] == ["chains"]:
         smoke.phase_device()
         return _chains(smoke)
-    against = {"k1": _k1_against, "k7": _k7_against, "k8": _k8_against}
+    against = {"k1": _k1_against, "k7": _k7_against, "k8": _k8_against,
+               "k234n": _k234n_against, "k6b": _k6b_against}
     if sys.argv[1:2] and sys.argv[1] in against and len(sys.argv) == 3:
         smoke.phase_device()
         return against[sys.argv[1]](smoke, sys.argv[2])
