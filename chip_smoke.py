@@ -17,8 +17,10 @@ Phases, each printing a line; any failure propagates (non-zero exit):
    the main paths give it (K1, K234 and K5 also at the edge shapes of
    ``testutil.FILTER_EDGES``, ``OUTPUT_STAGE_EDGES`` and
    ``HUFFMAN_EDGES``, K7 at ``C2_EDGES``, K8 at ``PCM_EDGES``, K9 at
-   ``FRAME_REMIX_EDGES`` and K10, the chunk program's arena front end,
-   at the headline chunk in both modes and at ``CHUNK_LANES_EDGES``; K5
+   ``FRAME_REMIX_EDGES``, K10, a device-Huffman chunk's K5 inputs, and
+   K1a, the filter reading the chunk arenas (in device Huffman on the
+   residuals K10 and K5 write), at the headline chunk (K1a in both
+   modes) and at ``CHUNK_LANES_EDGES``; K5
    also into the fused filter input, each substream at its lanes;
    K234n, the narrow readback, at tiers 12 and 16 with
    its flag rows, at the headline chunk, at ``NARROW_EDGES`` and with
@@ -42,20 +44,21 @@ Phases, each printing a line; any failure propagates (non-zero exit):
    in device-Huffman mode, each with the narrow readback on (the default)
    and off, each byte-compared with the port's C++ host-complete
    reconstruction of the same stream; the launch counters, zeroed before
-   each decode, must show that it went through its kernels (K10 and K1
-   once a chunk, and K234n with narrow on or K234 with it off; K5 too in
-   device-Huffman mode); the
+   each decode, must show that it went through its kernels (K1a once a
+   chunk, and K234n with narrow on or K234 with it off; in
+   device-Huffman mode K10 once and K5 twice a chunk too; K1 never, and
+   K10 never in standard mode); the
    tier each decode settled at, the chunks run again and the bytes
    drained; walls from the assembled stream, narrow on and off
    alternating, best of 5; then ``iter_packed`` at the default segment
    (the whole 30 s track) and at 5 s segments (6 chunks, each a
    ``decode_native`` of one slice between resume points), whose chunks
-   must join to the ``read_all_packed()`` bytes, with K1 and K234n
+   must join to the ``read_all_packed()`` bytes, with K1a and K234n
    launched for each;
 5a. profile: one ``uniform_arena_pipeline`` call on the headline's first
    chunk, arenas on the card, under ``torch.profiler`` in each mode: its
-   card records must be the port's kernels only (K10, K1, K234n; K5 in
-   device Huffman), no other kernel, copy or fill; then one whole
+   card records must be the port's kernels only (K1a, K234n; K10 and
+   K5 in device Huffman), no other kernel, copy or fill; then one whole
    standard decode's records and idle share, printed;
 5b. modes: the headline's first and last (partial) chunk built by
    ``mp_pack`` and by the numpy arena builder, pinned, in both modes:
@@ -64,8 +67,9 @@ Phases, each printing a line; any failure propagates (non-zero exit):
    chunks round-robin over ``[cuda:0, cuda:0]`` (both modes) and with
    ``multi_device`` over every visible card, and with
    ``drain_thread=False`` at narrow tier 16 and with the narrow readback
-   off (both modes): each equal to host-complete, with K10, K1 and K234n
-   (K234 with narrow off; K5 in device Huffman) launched for every chunk;
+   off (both modes): each equal to host-complete, with K1a and K234n
+   (K234 with narrow off; K10 and K5 in device Huffman) launched for
+   every chunk;
    and
    ``decode_native`` with each builder, best of 3 alternating, with the
    ``mlp/arena-build`` stage of each;
@@ -74,7 +78,7 @@ Phases, each printing a line; any failure propagates (non-zero exit):
    and the plaintext copy through ``dvda_tpu_torch.batch.disc_to_wavs``,
    byte-compared with the port's C++ host path (the packet walk +
    ``pcm_repack`` for PCM, host-complete for MLP); the counters, zeroed
-   before the phase, must show K7, K8, K1 and K234 launches; walls against
+   before the phase, must show K7, K8, K1a and K234n launches; walls against
    the host path (host C2);
 6b. tiers: the three short 24-bit streams of
    tests/test_mlp_native.py:728-765 (quiet, mid, loud) with narrow on and
@@ -107,10 +111,10 @@ Phases, each printing a line; any failure propagates (non-zero exit):
    ``MlpDecoder`` run on the assembled stream.
 11. surface: the headline disc through the C-style API (``dvda_open`` ...
    ``dvda_read`` in reads of 4,096 frames on the default device) equal to
-   ``read_all()``, with K1 and K234n launched; the encrypted disc through
+   ``read_all()``, with K1a and K234n launched; the encrypted disc through
    ``SourceAOBReader([CallableSectorSource(...)], decrypt=<the port's
    CppmDecryptor>)``, equal to the host path on the plaintext copy, with
-   K7, K8, K1 and K234n launched (the counters zeroed before each part);
+   K7, K8, K1a and K234n launched (the counters zeroed before each part);
    ``dvda_debug_info`` on the plaintext disc, one row per track with the
    ``Track`` objects' sectors; ``dvda-huffman --format json`` on codebook
    2 equal to ``peek_lut(2)``;
@@ -131,10 +135,11 @@ time and ``bound_by`` leans to bytes), computed from this run's inputs,
 and ``library_ms``: the time of the one PyTorch call
 that computes the same function where there is one (K8's packed form:
 ``index_select`` by the gather table; K6a's residual gather:
-``torch.take``), timed here only.  K1's ``launches`` sums its launches
-over every MLP path's run (standard and device Huffman, each with narrow
-on and off, ``iter_packed`` at 5 s segments, the modes of 5b, the CPPM
-track, churn, step, engine); K10's the four headline decodes of
+``torch.take``), timed here only.  K1a's ``launches`` sums its launches
+over every uniform MLP path's run (standard and device Huffman, each
+with narrow on and off, ``iter_packed`` at 5 s segments, the modes of
+5b, the CPPM track), K1's over the paths that still run it (churn,
+step, engine); K10's the two device-Huffman headline decodes of
 phase 5.  The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
 """
@@ -163,14 +168,14 @@ SECONDS = 30
 #: headline chunk geometry: 256 chains of 16 blocks x 40 samples,
 #: 8 frames of 80 samples per chain
 CHUNK, NB0, S0, L0 = 256, 16, 40, 80
-KERNELS = ("chunk_lanes", "mlp_filter", "output_stage",
+KERNELS = ("mlp_filter_arena", "chunk_lanes", "mlp_filter", "output_stage",
            "output_stage_narrow", "huffman_decode", "pcm_unpack",
            "c2_decrypt", "lane_pack", "series_remix", "frame_remix")
 #: kernels whose build fails if ptxas gives them a stack frame (K234n is
 #: one launch of K234's kernel, ``output_stage``)
 NO_STACK = ("output_stage", "lane_pack", "series_remix", "mlp_filter",
             "huffman_decode", "c2_decrypt", "pcm_unpack", "frame_remix",
-            "chunk_lanes")
+            "chunk_lanes", "mlp_filter_arena")
 #: the three-tier streams (tests/test_mlp_native.py:728-765): 5.1, 24
 #: frames, seed 11, output shifts putting the peak within 12 bits, within
 #: int16, past int16; and the tier each must settle at
@@ -197,8 +202,12 @@ PCM_TRACKS = (dict(pcm_frames=2_880_000, sample_rate=96000,
               dict(pcm_frames=1_440_000, sample_rate=48000,
                    bits_per_sample=16, channel_assignment=1, seed=1))
 MEDIA_KEY, ALBUM = 0x00DEADBEEF001122, 0x0F0E0D0C0B0A0908
-#: K1 launches of each main path's run (K1 is the filter of every MLP path)
+#: K1 launches of each main path's run (the filter of the general path,
+#: the fused step and the Python engine), and K1a's (the filter of every
+#: uniform chunk: the headline decodes, iter_packed, the modes of 5b, the
+#: CPPM disc's MLP track)
 K1_PATHS: dict[str, int] = {}
+K1A_PATHS: dict[str, int] = {}
 
 
 def _require(cond: bool, what: str) -> None:
@@ -372,72 +381,154 @@ def _huffman_headline(stream, dev):
             for i in range(2)], lanes
 
 
-def _kernel_k10(stream, dev):
-    """K10 against its plain version on the card, bit-exact: the headline's
-    first chunk in standard and device-Huffman mode, then
-    ``testutil.CHUNK_LANES_EDGES`` (fused and unfused substreams,
-    per-chain and per-block parameters, a partial chunk, int32 residuals,
-    one lane, device-Huffman inputs); its card time at the standard
-    headline chunk."""
+def _spec_bytes(spec, names=None) -> int:
+    """Bytes of the substream arrays of ``spec`` (of ``names`` only, by
+    their suffix after ``sN_``, where given); K5's bypass slot map is
+    not an input of K10 or K1a."""
     import numpy as np
+
+    return sum(int(np.prod(e[3])) * e[1] for e in spec
+               if e[4] != "flag" and e[0][0] == "s" and e[0][1].isdigit()
+               and not e[0].endswith(("_bypk", "_bypv"))
+               and (names is None or e[0].split("_", 1)[1] in names))
+
+
+def _kernel_k10(stream, dev):
+    """K10 (a device-Huffman chunk's K5 lane inputs and residual buffers)
+    against the plain front end on the card, bit-exact: the headline's
+    first chunk in device-Huffman mode, then the device-Huffman cases of
+    ``testutil.CHUNK_LANES_EDGES`` (fused and unfused substreams,
+    per-chain and per-block rows); its card time at the headline chunk."""
     import torch
 
     from dvda_tpu_torch.ops.chunk_lanes import (chunk_lanes,
-                                                chunk_lanes_reference,
-                                                chunk_layout)
+                                                chunk_lanes_reference)
     from dvda_tpu_torch.testutil import CHUNK_LANES_EDGES, chunk_lanes_inputs
 
     def check(arenas, spec, label):
         got = chunk_lanes(*arenas, spec)
         ref = chunk_lanes_reference(*arenas, spec)
         torch.cuda.synchronize()
-        huffman = chunk_layout(spec).huffman
         err = 0
-        for mine, theirs in zip(got.filters, ref.filters, strict=True):
-            for j, (m, t) in enumerate(zip(mine, theirs, strict=True)):
-                if not (huffman and j == 0):  # K5 writes those residuals
-                    err = max(err, _max_err(m, t))
         for mine, theirs in zip(got.huffman, ref.huffman, strict=True):
-            for m, t in zip(mine or (), theirs or (), strict=True):
+            for m, t in zip(mine, theirs, strict=True):
                 err = max(err, _max_err(m, t))
+        _require([r.shape for r in got.residuals]
+                 == [f[0].shape for f in ref.filters],
+                 f"K10 {label}: residual buffers of the wrong shape")
         _require(err == 0, f"K10 {label}: max |kernel - plain| = {err}")
         return got, err
 
-    k10_err = 0
-    for huffman in (False, True):
-        arenas, spec, _ = _headline_chunk(stream, dev, huffman)
-        got, err = check(arenas, spec, "headline")
-        k10_err = max(k10_err, err)
-        shapes = [tuple(f[1].shape) for f in got.filters]
-        print(f"[kernels] K10 chunk_lanes headline chunk "
-              f"({'device Huffman' if huffman else 'standard'}): filter "
-              f"input {tuple(got.filters[0][0].shape)}, parameters "
-              f"{shapes}: bit-exact")
-        if huffman:
-            continue
-        ms, ev = _times(lambda: chunk_lanes(*arenas, spec), 50)
-        plain_ms = events_ms(lambda: chunk_lanes_reference(*arenas, spec),
-                             5)
-        # each array K10 reads once, each output once (a fused launch's
-        # state is one tensor); about 4 integer operations an output
-        read = sum(int(np.prod(e[3])) * e[1] for e in spec
-                   if e[4] != "flag" and e[0][0] == "s" and e[0][1].isdigit()
-                   and not e[0].endswith(("_bypk", "_bypv")))
-        written = sum(_nbytes(*f[:9]) for f in got.filters)
-        record = _record(0, ms, plain_ms, read + written, written)
-        print(f"[kernels] K10 headline: kernel {ms:.4f} ms on the card "
-              f"({ev:.4f} ms per call back to back), bound "
-              f"{record['bound_ms']:.4f} ms ({(read + written) / 1e6:.3f} "
-              f"MB: {read / 1e6:.3f} read, {written / 1e6:.3f} written), "
-              f"plain {plain_ms:.3f} ms per call")
-    for case in CHUNK_LANES_EDGES:
+    arenas, spec, _ = _headline_chunk(stream, dev, True)
+    got, k10_err = check(arenas, spec, "headline")
+    print(f"[kernels] K10 chunk_lanes headline chunk (device Huffman): K5 "
+          f"inputs of {len(got.huffman)} substreams, residual buffers "
+          f"{[tuple(r.shape) for r in got.residuals]}: bit-exact")
+    ms, ev = _times(lambda: chunk_lanes(*arenas, spec), 50)
+    plain_ms = events_ms(lambda: chunk_lanes_reference(*arenas, spec), 5)
+    # each array K10 reads once, each output once (K5's inputs; the
+    # residual buffers are only allocated); about 4 integer operations an
+    # output
+    read = _spec_bytes(spec, ("bitpos", "cb", "lsbb", "off", "nbyp",
+                              "quant", "quant_c"))
+    written = sum(_nbytes(*h) for h in got.huffman)
+    record = _record(0, ms, plain_ms, read + written, written)
+    print(f"[kernels] K10 headline (device Huffman): kernel {ms:.4f} ms on "
+          f"the card ({ev:.4f} ms per call back to back), bound "
+          f"{record['bound_ms']:.4f} ms ({(read + written) / 1e6:.3f} MB: "
+          f"{read / 1e6:.3f} read, {written / 1e6:.3f} written), plain "
+          f"{plain_ms:.3f} ms per call")
+    cases = [c for c in CHUNK_LANES_EDGES if c[4]]
+    for case in cases:
         arenas, spec = chunk_lanes_inputs(case)
-        _, err = check([torch.from_numpy(a).to(dev) for a in arenas], spec,
-                       case[0])
+        arenas = [torch.from_numpy(a).to(dev) for a in arenas]
+        _, err = check(arenas, spec, case[0])
         k10_err = max(k10_err, err)
-    names = ", ".join(c[0] for c in CHUNK_LANES_EDGES)
-    print(f"[kernels] K10 edge cases ({names}): bit-exact")
+    print(f"[kernels] K10 edge cases ({', '.join(c[0] for c in cases)}): "
+          "bit-exact")
     record["max_abs_err"] = k10_err
+    return record
+
+
+def _kernel_k1a(stream, dev):
+    """K1a (the filter reading the chunk arenas) against its plain version
+    (the front end's, then K1's) on the card, bit-exact: the headline's
+    first chunk in standard mode and in device Huffman (its residuals
+    written by K10 and K5 as the main path writes them), then
+    ``CHUNK_LANES_EDGES`` (device-Huffman cases on random residual
+    buffers); its card time in both modes at the headline chunk, the
+    record's that of standard mode."""
+    import torch
+
+    from dvda_tpu_torch.codecs.mlp import native_engine as ne
+    from dvda_tpu_torch.ops.chunk_filter import (chunk_filter,
+                                                 chunk_filter_reference)
+    from dvda_tpu_torch.ops.chunk_lanes import chunk_lanes, chunk_layout
+    from dvda_tpu_torch.ops.huffman_decode import decode_residuals_device
+    from dvda_tpu_torch.testutil import CHUNK_LANES_EDGES, chunk_lanes_inputs
+
+    def check(arenas, spec, res, label):
+        got = chunk_filter(*arenas, spec, res)
+        ref = chunk_filter_reference(*arenas, spec, res)
+        torch.cuda.synchronize()
+        err = max(_max_err(g, r) for g, r in zip(got, ref, strict=True))
+        _require(err == 0, f"K1a {label}: max |kernel - plain| = {err}")
+        return got, err
+
+    k1a_err = 0
+    for huffman in (False, True):
+        mode = "device Huffman" if huffman else "standard"
+        arenas, spec, words = _headline_chunk(stream, dev, huffman)
+        res = None
+        if huffman:  # the main path's residuals: K10, then K5
+            lanes = chunk_lanes(*arenas, spec)
+            arrs, flags = ne.unpack_spec(*arenas, spec)
+            for i, (g, lane0) in enumerate(lanes.places):
+                args, kw = ne.huffman_inputs(lanes, arrs, flags, i, words)
+                decode_residuals_device(*args, **kw, out=lanes.residuals[g],
+                                        lane0=lane0)
+            res = lanes.residuals
+        got, err = check(arenas, spec, res, f"headline ({mode})")
+        k1a_err = max(k1a_err, err)
+        ms, ev = _times(lambda: chunk_filter(*arenas, spec, res), 50)
+        plain_ms = events_ms(
+            lambda: chunk_filter_reference(*arenas, spec, res), 2)
+        # each arena array it reads once (K5's residual buffer in device
+        # Huffman), its output once; per sample 8 FIR + 8 IIR int64
+        # multiply-adds, the shift, the quant mask and the residual add
+        read = _spec_bytes(spec, ("res", "rc_fir", "rc_fir_c", "rc_iir",
+                                  "rc_iir_c", "iir_init", "iir_init_c",
+                                  "shift", "shift_c", "quant", "quant_c",
+                                  "iir_reset", "iir_reset_c"))
+        read += _nbytes(*(res or ()))
+        written = _nbytes(*got)
+        cost = _record(0, ms, plain_ms, read + written,
+                       36 * sum(o.numel() for o in got))
+        NB, S = chunk_layout(spec).groups[0][:2]
+        steps = NB * S
+        print(f"[kernels] K1a mlp_filter_arena headline chunk ({mode}, "
+              f"output {[tuple(o.shape) for o in got]}): bit-exact; kernel "
+              f"{ms:.4f} ms on the card ({ev:.4f} ms per call back to back; "
+              f"{ms * 1e6 / steps:.1f} ns per dependent step of {steps}), "
+              f"bound {cost['bound_ms']:.4f} ms ({(read + written) / 1e6:.3f}"
+              f" MB: {read / 1e6:.3f} read, {written / 1e6:.3f} written), "
+              f"plain {plain_ms:.2f} ms per call")
+        if not huffman:
+            record = cost
+    gen = torch.Generator().manual_seed(15)
+    for case in CHUNK_LANES_EDGES:
+        arenas, spec = chunk_lanes_inputs(case, filter_domain=True)
+        arenas = [torch.from_numpy(a).to(dev) for a in arenas]
+        res = None
+        if case[4]:
+            res = [torch.randint(-2**31, 2**31 - 1, g[:3], generator=gen,
+                                 dtype=torch.int32).to(dev)
+                   for g in chunk_layout(spec).groups]
+        _, err = check(arenas, spec, res, case[0])
+        k1a_err = max(k1a_err, err)
+    print(f"[kernels] K1a edge cases "
+          f"({', '.join(c[0] for c in CHUNK_LANES_EDGES)}): bit-exact")
+    record["max_abs_err"] = k1a_err
     return record
 
 
@@ -616,7 +707,7 @@ def phase_kernels(stream, plain, enc_path):
 
     # the main path's form: each substream into its lanes of the fused
     # filter input (out, lane0)
-    fused = torch.full_like(lanes.filters[0][0], -7)
+    fused = torch.full_like(lanes.residuals[0], -7)
 
     def k5_chunk():  # the chunk's two launches
         for (args, kw), (_, lane0) in zip(calls, lanes.places):
@@ -659,6 +750,7 @@ def phase_kernels(stream, plain, enc_path):
     results["huffman_decode"] = _record(k5_err, ms, plain_ms, nbytes,
                                         24 * n_res)
     results["chunk_lanes"] = _kernel_k10(stream, dev)
+    results["mlp_filter_arena"] = _kernel_k1a(stream, dev)
     results["pcm_unpack"] = _kernel_k8(plain, dev)
     results["c2_decrypt"] = _kernel_k7(plain, enc_path, dev)
     results["frame_remix"] = _kernel_k9(dev)
@@ -1001,12 +1093,14 @@ def phase_main(layout, cfg, smi: str):
                                                          global_timer)
     from dvda_tpu_torch.codecs.mlp.track import assemble_track_stream
     from dvda_tpu_torch.config import DecodeConfig
+    from dvda_tpu_torch.ops.chunk_filter import chunk_filter
     from dvda_tpu_torch.ops.chunk_lanes import chunk_lanes
     from dvda_tpu_torch.ops.huffman_decode import decode_residuals_device
     from dvda_tpu_torch.ops.mlp_filter import mlp_filter_blocks_tl
     from dvda_tpu_torch.ops.rematrix import output_stage
 
-    counters = {"chunk_lanes": chunk_lanes,
+    counters = {"mlp_filter_arena": chunk_filter,
+                "chunk_lanes": chunk_lanes,
                 "mlp_filter": mlp_filter_blocks_tl,
                 "output_stage": output_stage,
                 "huffman_decode": decode_residuals_device}
@@ -1038,14 +1132,16 @@ def phase_main(layout, cfg, smi: str):
         _, second, _ = port_decode(conf)
         reader_s[mode] = (first, second)
     for mode, n in launches.items():
-        k5 = (n["huffman_decode"] >= 36 if mode.startswith("device")
-              else n["huffman_decode"] == 0)
+        huffman = mode.startswith("device")
+        k1a = n["mlp_filter_arena"]
         k234 = ((n["output_stage_narrow"] >= 18 and n["output_stage"] == 0)
                 if modes[mode].narrow_d2h else
                 (n["output_stage"] >= 18 and n["output_stage_narrow"] == 0))
-        # K10 and K1 once a chunk (the two substreams fuse)
-        _require(n["mlp_filter"] >= 18 and k5 and k234
-                 and n["chunk_lanes"] == n["mlp_filter"],
+        # K1a once a chunk (the two substreams fuse), never K1; in device
+        # Huffman K10 (K5's inputs) once and K5 twice a chunk before it
+        _require(k1a >= 18 and k234 and n["mlp_filter"] == 0
+                 and n["chunk_lanes"] == (k1a if huffman else 0)
+                 and n["huffman_decode"] == (2 * k1a if huffman else 0),
                  f"{mode} decode did not run its kernels: {n}")
         _require(tiers[mode][0] == (16 if modes[mode].narrow_d2h else 0),
                  f"{mode}: the headline settled at tier {tiers[mode][0]}")
@@ -1111,11 +1207,10 @@ def phase_main(layout, cfg, smi: str):
               f"realtime (runs {', '.join(f'{x:.4f}' for x in times[who])})"
               f"{extra}; stages {timers}")
     for mode in modes:
-        K1_PATHS[mode] = launches[mode]["mlp_filter"]
-    K1_PATHS["iter_packed"] = _iter_packed_check(layout, got["standard"],
-                                                 counters, output_stage)
+        K1A_PATHS[mode] = launches[mode]["mlp_filter_arena"]
+    K1A_PATHS["iter_packed"] = _iter_packed_check(layout, got["standard"],
+                                                  counters, output_stage)
     return {"chunk_lanes": sum(n["chunk_lanes"] for n in launches.values()),
-            "mlp_filter": launches["standard"]["mlp_filter"],
             "output_stage": launches["standard_wide"]["output_stage"],
             "output_stage_narrow":
                 launches["standard"]["output_stage_narrow"],
@@ -1125,9 +1220,9 @@ def phase_main(layout, cfg, smi: str):
 def _iter_packed_check(layout, want: bytes, counters, output_stage) -> int:
     """``iter_packed`` on the headline disc, at the default segment (30 s:
     the whole track, one chunk) and at 5 s segments (six, cut at the
-    manifest's resume points, each decoded on its own by K1 + K234n on the
-    card: none handed to the spec decoder on the host), both equal to
-    ``read_all_packed()``; returns the 5 s run's K1 launches."""
+    manifest's resume points, each decoded on its own by K1a + K234n on
+    the card: none handed to the spec decoder on the host), both equal to
+    ``read_all_packed()``; returns the 5 s run's K1a launches."""
     import torch
 
     from dvda_tpu_torch.codecs.mlp.track import decode_segment
@@ -1145,7 +1240,7 @@ def _iter_packed_check(layout, want: bytes, counters, output_stage) -> int:
         chunks = [bytes(c) for c in reader.iter_packed(segment)]
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
-        k1 = counters["mlp_filter"].launches
+        k1 = counters["mlp_filter_arena"].launches
         k234n = output_stage.narrow_launches
         _require(len(chunks) == n_chunks,
                  f"iter_packed({segment}): {len(chunks)} chunks, not "
@@ -1157,11 +1252,11 @@ def _iter_packed_check(layout, want: bytes, counters, output_stage) -> int:
                  f"iter_packed({segment}): {decode_segment.spec_fallbacks} "
                  "segments decoded on the spec decoder, not the card")
         _require(k1 >= len(chunks) and k234n >= len(chunks),
-                 f"iter_packed({segment}) did not run K1 and K234n on "
+                 f"iter_packed({segment}) did not run K1a and K234n on "
                  f"each segment: {k1}, {k234n}")
         print(f"[main] iter_packed(segment_pcm_frames={segment}): "
               f"{len(chunks)} chunks == read_all_packed, {wall:.4f} s "
-              f"(manifest parse + segment decodes), K1 {k1} launches, "
+              f"(manifest parse + segment decodes), K1a {k1} launches, "
               f"K234n {k234n}")
     return k1
 
@@ -1219,6 +1314,7 @@ def phase_modes(layout, smi: str):
     from dvda_tpu_torch.codecs.mlp.native_engine import global_timer
     from dvda_tpu_torch.codecs.mlp.track import assemble_track_stream
     from dvda_tpu_torch.config import DecodeConfig
+    from dvda_tpu_torch.ops.chunk_filter import chunk_filter
     from dvda_tpu_torch.ops.chunk_lanes import chunk_lanes
     from dvda_tpu_torch.ops.huffman_decode import decode_residuals_device
     from dvda_tpu_torch.ops.mlp_filter import mlp_filter_blocks_tl
@@ -1236,9 +1332,9 @@ def phase_modes(layout, smi: str):
 
     def run(label, conf, devices=None):
         """One ``read_all_packed()`` through the reader on ``conf`` (with
-        ``devices`` as the round-robin's list): == host-complete, K1 and
-        K234n (K234 with narrow off; K5 in device Huffman) launched for
-        each chunk."""
+        ``devices`` as the round-robin's list): == host-complete, K1a and
+        K234n (K234 with narrow off; K10 and K5 in device Huffman) launched
+        for each chunk, K1 never."""
         nonlocal k1_total
         real = ne._decode_devices
         if devices is not None:
@@ -1252,7 +1348,7 @@ def phase_modes(layout, smi: str):
             wall = time.perf_counter() - t
         finally:
             ne._decode_devices = real
-        k1 = mlp_filter_blocks_tl.launches
+        k1 = chunk_filter.launches
         k10 = chunk_lanes.launches
         k5 = decode_residuals_device.launches
         k234, k234n = output_stage.launches, output_stage.narrow_launches
@@ -1261,19 +1357,20 @@ def phase_modes(layout, smi: str):
                  f"{label}: bytes differ from host-complete")
         narrow = conf.resolved_narrow_d2h()
         _require(info["chunks"] == n_chunks and k1 >= n_chunks
-                 and k10 == k1
+                 and mlp_filter_blocks_tl.launches == 0
+                 and k10 == (k1 if conf.device_huffman else 0)
                  and (k234n if narrow else k234) >= n_chunks
                  and (k234 if narrow else k234n) == 0
                  and (k5 >= 2 * n_chunks if conf.device_huffman
                       else k5 == 0),
-                 f"{label}: did not run its kernels: K10 {k10}, K1 {k1}, "
+                 f"{label}: did not run its kernels: K10 {k10}, K1a {k1}, "
                  f"K5 {k5}, "
                  f"K234 {k234}, K234n {k234n}, {info['chunks']} chunks")
         _require(info["tier"] == (16 if narrow else 0),
                  f"{label}: settled at tier {info['tier']}")
         k1_total += k1
         print(f"[modes] {label}: == host-complete, {wall:.4f} s; launches "
-              f"K10 {k10}, K1 {k1}, K5 {k5}, K234 {k234}, K234n {k234n}; tier "
+              f"K10 {k10}, K1a {k1}, K5 {k5}, K234 {k234}, K234n {k234n}; tier "
               f"{info['tier']}, {info['redone']} chunks run again, "
               f"{info['drained']} bytes drained")
 
@@ -1328,15 +1425,16 @@ def phase_modes(layout, smi: str):
                 f"{'on' if narrow else 'off'}",
                 DecodeConfig(device="cuda", device_huffman=huffman,
                              narrow_d2h=narrow, drain_thread=False))
-    K1_PATHS["modes"] = k1_total
+    K1A_PATHS["modes"] = k1_total
 
 
 def phase_profile(layout, stream, smi: str):
     """One chunk program call (``uniform_arena_pipeline``) on the
     headline's first chunk, arenas on the card, under ``torch.profiler``
     in each mode: its card records must be the port's kernels only (no
-    other kernel, no copy, no fill), and the launch counters K10, K1 and
-    K234n once and, in device Huffman, K5 twice.  Then one whole standard
+    other kernel, no copy, no fill), and the launch counters K1a and
+    K234n once and, in device Huffman, K10 once and K5 twice (no K1, and
+    no K10 in standard mode).  Then one whole standard
     decode under the profiler, its records and idle share printed (not
     gated: the profiler has lost records on this card)."""
     import torch
@@ -1360,12 +1458,11 @@ def phase_profile(layout, stream, smi: str):
         torch.cuda.synchronize()
         _zero_launches()
         share, detail = device_idle_share(call)
-        launched = _launched("chunk_lanes_kernel", "mlp_filter_kernel",
+        launched = _launched("mlp_filter_arena_kernel",
                              "output_stage_kernel")
-        want = {"chunk_lanes_kernel": 1, "mlp_filter_kernel": 1,
-                "output_stage_kernel": 1}
+        want = {"mlp_filter_arena_kernel": 1, "output_stage_kernel": 1}
         if huffman:
-            want["huffman_decode_kernel"] = 2
+            want.update(chunk_lanes_kernel=1, huffman_decode_kernel=2)
         _require(launched == want, f"{mode} chunk program launched "
                                    f"{launched}, expected {want}")
         foreign = {k: n for k, n in detail["records"].items()
@@ -1464,7 +1561,7 @@ def phase_cppm(plain, enc_path: str, n_sectors: int, smi: str):
     from dvda_tpu_torch.container.aob import AOBReader
     from dvda_tpu_torch.cppm.decrypt import CppmDecryptor
     from dvda_tpu_torch.ops.c2_decrypt import decrypt_sectors_device
-    from dvda_tpu_torch.ops.mlp_filter import mlp_filter_blocks_tl
+    from dvda_tpu_torch.ops.chunk_filter import chunk_filter
     from dvda_tpu_torch.ops.pcm_unpack import decode_chunks_device
     from dvda_tpu_torch.ops.rematrix import output_stage
     from dvda_tpu_torch.testutil import host_track_bytes
@@ -1474,7 +1571,7 @@ def phase_cppm(plain, enc_path: str, n_sectors: int, smi: str):
     conf = DecodeConfig(device="cuda")
     counters = {"c2_decrypt": decrypt_sectors_device,
                 "pcm_unpack": decode_chunks_device,
-                "mlp_filter": mlp_filter_blocks_tl,
+                "mlp_filter_arena": chunk_filter,
                 "output_stage": output_stage}
     title = (dvda_tpu_torch.open_disc(enc_path, config=conf).open_titleset(1)
              .open_title(1))
@@ -1510,10 +1607,10 @@ def phase_cppm(plain, enc_path: str, n_sectors: int, smi: str):
     written = disc_to_wavs(plain.path, wav_dir, config=conf)
     launches = {k: fn.launches for k, fn in counters.items()}
     launches["output_stage_narrow"] = output_stage.narrow_launches
-    K1_PATHS["cppm"] = launches["mlp_filter"]
+    K1A_PATHS["cppm"] = launches["mlp_filter_arena"]
     # the MLP track reads back narrow (the default): K234n, not K234
     _require(launches["c2_decrypt"] >= 10 and launches["pcm_unpack"] >= 2
-             and launches["mlp_filter"] >= 18
+             and launches["mlp_filter_arena"] >= 18
              and launches["output_stage_narrow"] >= 18,
              f"the CPPM disc phase did not run its kernels: {launches}")
 
@@ -2193,7 +2290,7 @@ def phase_surface(layout, plain, enc_path: str, smi: str):
             break
         blocks.append(block)
     wall = time.perf_counter() - t
-    launches = _launched("mlp_filter_kernel", "output_stage_kernel")
+    launches = _launched("mlp_filter_arena_kernel", "output_stage_kernel")
     _require(output_stage.narrow_launches > 0,
              "dvda_read: the 24-bit track did not read back narrow (K234n)")
     dt.dvda_close_track_reader(reader)
@@ -2227,7 +2324,8 @@ def phase_surface(layout, plain, enc_path: str, smi: str):
                for n in (1, 2, 3)]
         wall = time.perf_counter() - t
         launches = _launched("c2_decrypt_kernel", "pcm_unpack_kernel",
-                             "mlp_filter_kernel", "output_stage_kernel")
+                             "mlp_filter_arena_kernel",
+                             "output_stage_kernel")
         _require(output_stage.narrow_launches > 0,
                  "SourceAOBReader: the MLP track did not read back narrow")
     ptitle = dt.open_disc(plain.path).open_titleset(1).open_title(1)
@@ -2348,10 +2446,12 @@ def main() -> int:
         engine_launches, _ = phase_engine(
             phase_synth_engine(work, ENGINE_FRAMES, "engine"), smi)
         launches["frame_remix"] = engine_launches["frame_remix"]
-        # K1's launches: every MLP path's run (the filter of each)
+        # the filters' launches: every MLP path's run
         launches["mlp_filter"] = sum(K1_PATHS.values())
+        launches["mlp_filter_arena"] = sum(K1A_PATHS.values())
         print(f"[launches] K1 per path {K1_PATHS}: "
-              f"{launches['mlp_filter']} in all")
+              f"{launches['mlp_filter']} in all; K1a per path {K1A_PATHS}: "
+              f"{launches['mlp_filter_arena']} in all")
         phase_bail(phase_synth_engine(work, BAIL_FRAMES, "bail",
                                       checkdata=False))
         phase_surface(layout, plain, enc_path, smi)
@@ -2362,6 +2462,7 @@ def main() -> int:
                     if m.split(".")[0] in ("jax", "jaxlib", "dvda_tpu"))
     _require(not loaded, f"jax or dvda_tpu was imported: {loaded[:5]}")
     replaces = {
+        "mlp_filter_arena": "dvda_tpu/ops/pallas_filter.py:37",
         "chunk_lanes": "dvda_tpu/codecs/mlp/native_engine.py:111",
         "mlp_filter": "dvda_tpu/ops/pallas_filter.py:37",
         "output_stage": "dvda_tpu/codecs/mlp/native_engine.py:282",
@@ -2374,7 +2475,8 @@ def main() -> int:
         "frame_remix": "dvda_tpu/ops/rematrix.py:33",
     }
     sources = {"lane_pack": "general_gather", "series_remix": "general_gather",
-               "output_stage_narrow": "output_stage"}
+               "output_stage_narrow": "output_stage",
+               "mlp_filter_arena": "chunk_filter"}
     record = {"kernels": [
         {"name": k, "route": "cuda",
          "source": f"dvda_tpu_torch/csrc/{sources.get(k, k)}.cu",

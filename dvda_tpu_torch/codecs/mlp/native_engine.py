@@ -1,4 +1,4 @@
-"""MLP decode on the card: native parse → chunk arenas → K1 → K234 → drain.
+"""MLP decode on the card: native parse → chunk arenas → K1a → K234 → drain.
 
 Port of the uniform device path of dvda_tpu/codecs/mlp/native_engine.py,
 in its two modes.  The C++ host library (``dvda_tpu_torch.host``) parses
@@ -7,10 +7,11 @@ chains into three typed arenas (``mp_pack``); the arenas are uploaded from
 pinned host memory and the chunk program runs hand-written kernels on the
 device:
 
-    per chunk:  arenas (int32/int16/int8) ─h2d→ K10 arena front end
-          (ops/chunk_lanes.py: lane pack, widening, fused filter inputs)
-        → [device Huffman: K5 residual decode (ops/huffman_decode.py)]
-        → K1 AR filter (ops/mlp_filter.py) → time-leading join
+    per chunk:  arenas (int32/int16/int8) ─h2d→
+        [device Huffman: K10, K5's lane inputs (ops/chunk_lanes.py)
+          → K5 residual decode (ops/huffman_decode.py)]
+        → K1a AR filter reading the arenas (ops/chunk_filter.py; the
+          substreams of one geometry fused) → time-leading join
         → K234 noise + bypass + rematrix + output stage + byte pack
           (ops/rematrix.py) ─d2h→ rows of one pinned output buffer
 
@@ -60,12 +61,12 @@ import torch
 
 from ... import host
 from ...config import DecodeConfig, default_config
+from ...ops.chunk_filter import chunk_filter
 from ...ops.chunk_lanes import chunk_lanes, chunk_layout
 from ...ops.general_gather import (general_pipeline, restart_chains,
                                   substream_tables)
 from ...ops.lfsr import _jump_columns
 from ...ops.huffman_decode import decode_residuals_device
-from ...ops.mlp_filter import mlp_filter_blocks_tl
 from ...ops.rematrix import output_stage
 from ...utils.log import logger
 from ...utils.profiling import global_timer
@@ -692,12 +693,15 @@ def _chunk_program(a4, a2, a1, spec, words=None):
     output stage ran at (0: wide) and ``redo(tier)``, which runs the output
     stage again on the chunk's filter output at another tier (0: wide).
     dvda_tpu's ``redo`` reruns the whole chunk program from the arenas;
-    here K1 (and K5) run once a chunk, and a redo is one K234 launch.
+    here the filter (and K5) run once a chunk, and a redo is one K234
+    launch.
 
-    On the card a chunk launches the port's kernels only: K10 (the arena
-    front end, :func:`chunk_lanes`), K5 per substream in device-Huffman
-    mode (each writing its lanes of the fused filter input), K1 once per
-    filter launch, then K234 or K234n."""
+    On the card a chunk launches the port's kernels only: in standard
+    mode K1a once per filter launch (:func:`chunk_filter`, the filter
+    reading its inputs from the arenas), then K234 or K234n; in
+    device-Huffman mode first K10 (K5's lane inputs and the residual
+    buffers, :func:`chunk_lanes`) and K5 per substream, each writing its
+    lanes of the launch's residual buffer, then K1a on those buffers."""
     arrs, flags = unpack_spec(a4, a2, a1, spec)
     if "__pallas__" in flags:
         raise NotImplementedError(
@@ -707,17 +711,18 @@ def _chunk_program(a4, a2, a1, spec, words=None):
     if huffman and words is None:
         raise ValueError("device-Huffman arenas need the track's stream "
                          "words")
-    lanes = chunk_lanes(a4, a2, a1, spec)
-    byp = arrs.get("byp")
+    byp, residuals = arrs.get("byp"), None
     if huffman:
+        lanes = chunk_lanes(a4, a2, a1, spec)
+        residuals = lanes.residuals
         for i, (g, lane0) in enumerate(lanes.places):
             args, kw = huffman_inputs(lanes, arrs, flags, i, words)
             _, slots = decode_residuals_device(
-                *args, **kw, out=lanes.filters[g][0], lane0=lane0)
+                *args, **kw, out=residuals[g], lane0=lane0)
             if "bypk" in kw:
                 byp = slots
     # substreams of one (NB0, S0) run ONE filter launch on the fused lanes
-    outs = [mlp_filter_blocks_tl(*args)[0] for args in lanes.filters]
+    outs = chunk_filter(a4, a2, a1, spec, residuals)
     # time-leading join: [NB0, S0, lanes] flattens to [period, lanes] for
     # free; substreams of different geometry (one launch each) concatenate
     # their channel-major lanes into the global order c*Bc + b

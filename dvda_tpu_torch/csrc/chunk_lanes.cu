@@ -1,25 +1,19 @@
-// K10: the chunk program's arena front end on the card.
+// K10: a device-Huffman chunk's K5 inputs on the card.
 //
-// Replaces dvda_tpu/codecs/mlp/native_engine.py:111-267, the part of the
-// jitted chunk program _uniform_arena_pipeline between the arenas' upload
-// and the filter: the arenas sliced and widened, the residuals transposed
-// time-leading, the parameter rows packed channel-major and broadcast
-// over each chain's blocks, iir_reset, block_len and the zero states
-// made, the substreams fused on the lane axis, and in device-Huffman mode
-// K5's lane inputs (chunk_lanes.cuh says exactly what).  One launch a
-// chunk, on the current stream, before K5 and K1.
+// Replaces the part of dvda_tpu/codecs/mlp/native_engine.py:111-267 (the
+// jitted chunk program _uniform_arena_pipeline between the arenas'
+// upload and the filter) that K5 reads: the bitpos, codebook, lsb_bits,
+// offset, quant and nbyp arrays sliced from the arenas, widened to int32
+// and the per-chain quant broadcast over each chain's blocks (:140-172;
+// chunk_lanes.cuh says exactly what).  The rest of that front end, the
+// filter's inputs, is read by K1a (chunk_filter.cu) from the arenas
+// itself.  The chunk program launches K10 only in device Huffman, once a
+// chunk, on the current stream, before K5 and K1a.
 //
-// Bound: bytes.  At the 5.1/96k headline chunk it moves about 8.8 MB
-// (int16 residuals in, int32 residuals out, three [1536, 16, 8] int32
-// parameter arrays).  The design is the simple one:
-//   * the residual transpose, the only access with a layout hazard
-//     (adjacent lanes lie NB0*n_ch*S0 elements apart in the arena), goes
-//     through a 32 x 33 shared-memory tile: a warp reads 32 consecutive
-//     samples of one chain and writes 32 consecutive lanes of one sample;
-//   * every other output is written one element a thread, consecutive
-//     threads on consecutive outputs, each reading its source by the
-//     index arithmetic of chunk_lanes_element (per-chain rows repeat
-//     across a chain's blocks and come from cache).
+// Bound: bytes (at the 5.1/96k headline chunk about 0.65 MB: 0.19 read,
+// 0.46 written), so in practice a launch.  Every output is written one
+// element a thread, consecutive threads on consecutive outputs, each
+// reading its source by the index arithmetic of chunk_lanes_element.
 // The descriptor is a kernel parameter (passed by value, read in place as
 // a __grid_constant__): nothing is uploaded per chunk.
 #include <cuda_runtime.h>
@@ -28,53 +22,29 @@
 
 namespace {
 
-// One block's work on substream s: a residual tile (t >= 0) or its
-// output elements from e0 on.
-__device__ __forceinline__ void chunk_lanes_block(
-    const ChunkLanesSub& s, int64_t t, int64_t e0, const ChunkArenas& A,
-    int32_t* __restrict__ out32, uint8_t* __restrict__ out8,
-    int32_t (*tile)[kChunkLanesTile + 1]) {
-  const int tid = threadIdx.x;
-  if (t >= 0) {
-    int nb, c, b0, s0;
-    chunk_lanes_tile(s, t, &nb, &c, &b0, &s0);
-    const int tx = tid & 31, ty = tid >> 5;
-    constexpr int kRowsPerPass = kChunkLanesThreads / kChunkLanesTile;
-    // rows are chains, columns samples: reads along s
-    for (int r = ty; r < kChunkLanesTile; r += kRowsPerPass) {
-      const int b = b0 + r, si = s0 + tx;
-      if (b < s.Bc && si < s.S0)
-        tile[r][tx] = chunk_lanes_res_load(s, A, nb, c, b, si);
-    }
-    __syncthreads();
-    // rows are samples, columns chains: writes along the lanes
-    for (int r = ty; r < kChunkLanesTile; r += kRowsPerPass) {
-      const int si = s0 + r, b = b0 + tx;
-      if (b < s.Bc && si < s.S0)
-        out32[chunk_lanes_res_at(s, nb, c, b, si)] = tile[tx][r];
-    }
-    return;
-  }
+// One block's output elements of substream s, from e0 on.
+__device__ __forceinline__ void chunk_lanes_block(const ChunkLanesSub& s,
+                                                  int64_t e0,
+                                                  const ChunkArenas& A,
+                                                  int32_t* __restrict__ out32) {
 #pragma unroll
   for (int k = 0; k < kChunkLanesPerThread; ++k) {
-    const int64_t e = e0 + (int64_t)k * kChunkLanesThreads + tid;
-    if (e < s.elems) chunk_lanes_element(s, A, (int32_t)e, out32, out8);
+    const int64_t e = e0 + (int64_t)k * kChunkLanesThreads + threadIdx.x;
+    if (e < s.elems) chunk_lanes_element(s, A, (int32_t)e, out32);
   }
 }
 
 __global__ void __launch_bounds__(kChunkLanesThreads)
     chunk_lanes_kernel(const __grid_constant__ ChunkLanesDesc d,
-                       const ChunkArenas A, int32_t* __restrict__ out32,
-                       uint8_t* __restrict__ out8) {
-  __shared__ int32_t tile[kChunkLanesTile][kChunkLanesTile + 1];
-  int64_t t, e0;
+                       const ChunkArenas A, int32_t* __restrict__ out32) {
+  int64_t e0;
   // the substream by a constant index: with d.sub[i] at a runtime index
   // ptxas kept the kernel at 32 registers and spilled (an 8-byte stack)
-  switch (chunk_lanes_locate(d, blockIdx.x, &t, &e0)) {
-    case 0: chunk_lanes_block(d.sub[0], t, e0, A, out32, out8, tile); break;
-    case 1: chunk_lanes_block(d.sub[1], t, e0, A, out32, out8, tile); break;
-    case 2: chunk_lanes_block(d.sub[2], t, e0, A, out32, out8, tile); break;
-    default: chunk_lanes_block(d.sub[3], t, e0, A, out32, out8, tile);
+  switch (chunk_lanes_locate(d, blockIdx.x, &e0)) {
+    case 0: chunk_lanes_block(d.sub[0], e0, A, out32); break;
+    case 1: chunk_lanes_block(d.sub[1], e0, A, out32); break;
+    case 2: chunk_lanes_block(d.sub[2], e0, A, out32); break;
+    default: chunk_lanes_block(d.sub[3], e0, A, out32);
   }
 }
 
@@ -82,20 +52,21 @@ __global__ void __launch_bounds__(kChunkLanesThreads)
 
 // Launches on ``stream`` and returns cudaGetLastError(), or -1 when
 // ``n_words`` is not the descriptor's size in int64 words (the wrapper and
-// this file disagree on its layout) or it holds more substreams than
-// kChunkLanesMaxSubs.  Never synchronises and allocates nothing.
+// this file disagree on its layout) or the descriptor is not a
+// device-Huffman chunk's of at most kChunkLanesMaxSubs substreams.  Never
+// synchronises and allocates nothing.
 extern "C" int dvda_chunk_lanes(const int64_t* desc, int64_t n_words,
                                 const int32_t* a4, const int16_t* a2,
                                 const int8_t* a1, int32_t* out32,
-                                uint8_t* out8, void* stream) {
+                                void* stream) {
   if (n_words * 8 != (int64_t)sizeof(ChunkLanesDesc)) return -1;
   ChunkLanesDesc d;
   memcpy(&d, desc, sizeof d);
-  if (d.n_subs < 1 || d.n_subs > kChunkLanesMaxSubs) return -1;
+  if (!chunk_lanes_desc_ok(d)) return -1;
   const int64_t blocks = chunk_lanes_plan(d);
   if (blocks <= 0) return 0;
   chunk_lanes_kernel<<<(unsigned)blocks, kChunkLanesThreads, 0,
                        (cudaStream_t)stream>>>(d, ChunkArenas{a4, a2, a1},
-                                               out32, out8);
+                                               out32);
   return (int)cudaGetLastError();
 }

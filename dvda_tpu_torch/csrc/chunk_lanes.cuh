@@ -1,49 +1,36 @@
-// K10 bodies: the chunk program's arena front end (dvda_tpu
-// native_engine.py:111-267) for one residual tile or one output element.
+// The chunk descriptor, and K10's bodies: K5's lane inputs of a
+// device-Huffman chunk (dvda_tpu native_engine.py:140-172).
 //
-// Semantics are dvda_tpu's _uniform_arena_pipeline up to its filter call:
-// each substream's arrays are slices of the three chunk arenas (int32,
-// int16, int8; :116-126), widened to int32 with sign extension
-// (:128-129), packed into channel-major lanes (lane c*Bc + b, :192-196),
-// per-chain parameter rows broadcast over the chain's NB0 blocks with
-// iir_reset kept in block 0 only (:197-213), block_len = S0 and zero
-// initial states (:194-195), and substreams of one (NB0, S0) fused on the
-// lane axis (:239-250).  In device-Huffman mode the residuals come from
-// K5, and K10 writes K5's int32 lane inputs instead (:140-172): rows
-// l = b*NB0 + nb, the per-chain quant broadcast over the blocks.
-//
-// Inputs: the three arenas and a descriptor (ChunkLanesDesc) that the
-// wrapper (ops/chunk_lanes.py) builds once per chunk spec.  Every array
-// is an (offset, element width) pair in the arena of that width; width 0
-// means the spec does not hold it.  Shapes (the spec's):
+// A chunk's substreams are slices of its three arenas (int32, int16,
+// int8; dvda_tpu native_engine.py:116-126), each array at its arena's
+// width, widened to int32 with sign extension where it is read
+// (:128-129).  The wrapper (ops/chunk_lanes.py) builds a descriptor
+// (ChunkLanesDesc) once per chunk spec: every array is an (offset,
+// element width) pair in the arena of that width; width 0 means the spec
+// does not hold it.  Shapes (the spec's):
 //   res            [Bc, NB0, n_ch, S0]   standard mode
 //   rc_fir, rc_iir, iir_init  [Bc, n_ch, 8] per chain or [Bc, NB0, n_ch, 8]
 //   shift, quant, iir_reset   [Bc, n_ch]    per chain or [Bc, NB0, n_ch]
 //   bitpos [Bc, NB0, nsub]; cb, lsbb, off [Bc, NB0, n_ch]; nbyp [Bc, NB0]
-// Outputs (element offsets in one int32 buffer, iir_reset in a byte
-// buffer of bools):
-//   res_tl[nb, s, c*Bc + b]  at o_res + (nb*S0 + s)*res_stride + c*Bc + b
-//                            (o_res holds the substream's first lane in a
-//                            fused group; res_stride is the group's lanes)
-//   rc_fir, rc_iir, iir_init [lanes, NB0, 8]; shift, quant, block_len,
-//   iir_reset [lanes, NB0]; state [lanes, 8] zeros;
+// K1a (chunk_filter.cuh) reads the residuals and the parameter rows
+// through one descriptor per filter launch.  K10 writes a device-Huffman
+// chunk's K5 inputs, per substream, in one int32 buffer (element
+// offsets):
 //   bitpos [Lc, nsub]; cb, lsbb, off, quant [Lc, n_ch]; nbyp [Lc]
-//   (Lc = Bc*NB0, lanes = n_ch*Bc).
+//   (Lc = Bc*NB0 chain-major rows l = b*NB0 + nb; the per-chain quant
+//   broadcast over the chain's blocks).
 //
-// The grid: per substream its residual tiles (32 x 32 of one (nb, c)
-// pair's [Bc, S0] matrix, transposed through shared memory so that the
-// reads run along s and the writes along b), then blocks of
-// kChunkLanesThreads * kChunkLanesPerThread output elements, one
-// element a thread at a time, consecutive threads on consecutive
-// outputs.  The plan (chunk_lanes_plan) counts both from the shapes.
+// The grid: per substream, blocks of kChunkLanesThreads *
+// kChunkLanesPerThread output elements, one element a thread at a time,
+// consecutive threads on consecutive outputs.  The plan
+// (chunk_lanes_plan) counts them from the shapes.
 #pragma once
 
 #include "dvda_hd.cuh"
 
 constexpr int kChunkLanesMaxSubs = 4;
-constexpr int kChunkLanesThreads = 256;  // 32 x 8 in a residual tile
+constexpr int kChunkLanesThreads = 256;
 constexpr int kChunkLanesPerThread = 4;  // output elements a thread
-constexpr int kChunkLanesTile = 32;
 
 // An array of the arenas: its element offset, and the arena's element
 // width (4, 2 or 1; 0: absent).
@@ -55,11 +42,11 @@ struct ChunkLanesSub {
   int64_t Bc, NB0, n_ch, S0, nsub, per_chain;
   ChunkArray res, rc_fir, rc_iir, iir_init, shift, quant, iir_reset, bitpos,
       cb, lsbb, off, nbyp;
-  int64_t o_res, res_stride, o_fir, o_iir, o_init, o_shift, o_quant, o_blen,
-      o_reset, o_state, o_bitpos, o_cb, o_lsbb, o_off, o_hquant, o_nbyp;
-  // filled by chunk_lanes_plan: residual tiles, output elements, and the
-  // substream's first block and block count in the grid
-  int64_t tiles, elems, block0, blocks;
+  // K10's outputs
+  int64_t o_bitpos, o_cb, o_lsbb, o_off, o_hquant, o_nbyp;
+  // filled by chunk_lanes_plan: output elements, and the substream's
+  // first block and block count in the grid
+  int64_t elems, block0, blocks;
 };
 
 struct ChunkLanesDesc {
@@ -84,110 +71,38 @@ DVDA_HD int32_t chunk_load(const ChunkArenas& A, const ChunkArray& x,
 
 DVDA_HD int64_t chunk_cdiv(int64_t a, int64_t b) { return (a + b - 1) / b; }
 
-// Tiles and elements of each substream, and its blocks in the grid;
-// returns the grid's block count.
+// Whether d is a device-Huffman chunk's descriptor K10 can take: 1 to
+// kChunkLanesMaxSubs substreams, each with its bitpos.
+DVDA_HD bool chunk_lanes_desc_ok(const ChunkLanesDesc& d) {
+  if (d.n_subs < 1 || d.n_subs > kChunkLanesMaxSubs) return false;
+  for (int i = 0; i < d.n_subs; ++i)
+    if (!d.sub[i].bitpos.width) return false;
+  return true;
+}
+
+// Elements of each substream, and its blocks in the grid; returns the
+// grid's block count.
 DVDA_HD int64_t chunk_lanes_plan(ChunkLanesDesc& d) {
   int64_t block = 0;
   for (int i = 0; i < d.n_subs; ++i) {
     ChunkLanesSub& s = d.sub[i];
-    const int64_t lanes = s.n_ch * s.Bc, rows = lanes * s.NB0;
-    const int64_t Lc = s.Bc * s.NB0;
-    s.tiles = s.res.width ? s.NB0 * s.n_ch * chunk_cdiv(s.Bc, kChunkLanesTile) *
-                                chunk_cdiv(s.S0, kChunkLanesTile)
-                          : 0;
-    s.elems = 28 * rows + 8 * lanes +
-              (s.bitpos.width ? Lc * (s.nsub + 4 * s.n_ch + 1) : 0);
+    s.elems = s.Bc * s.NB0 * (s.nsub + 4 * s.n_ch + 1);
     s.block0 = block;
     s.blocks =
-        s.tiles +
         chunk_cdiv(s.elems, (int64_t)kChunkLanesThreads * kChunkLanesPerThread);
     block += s.blocks;
   }
   return block;
 }
 
-// Tile t of substream s: its (nb, c) pair and the tile's first chain b0
-// and first sample s0.
-DVDA_HD void chunk_lanes_tile(const ChunkLanesSub& s, int64_t t, int* nb,
-                              int* c, int* b0, int* s0) {
-  const int tb = ((int)s.Bc + kChunkLanesTile - 1) / kChunkLanesTile;
-  const int ts = ((int)s.S0 + kChunkLanesTile - 1) / kChunkLanesTile;
-  const int pair = (int)t / (tb * ts);
-  const int r = (int)t - pair * tb * ts;
-  *nb = pair / (int)s.n_ch;
-  *c = pair - *nb * (int)s.n_ch;
-  *b0 = r / ts * kChunkLanesTile;
-  *s0 = r % ts * kChunkLanesTile;
-}
-
-// The residual of chain b, sample si of the tile's (nb, c) pair; the
-// caller keeps b < Bc and si < S0.
-DVDA_HD int32_t chunk_lanes_res_load(const ChunkLanesSub& s,
-                                     const ChunkArenas& A, int nb, int c,
-                                     int b, int si) {
-  return chunk_load(A, s.res,
-                    (((int64_t)b * s.NB0 + nb) * s.n_ch + c) * s.S0 + si);
-}
-
-DVDA_HD int64_t chunk_lanes_res_at(const ChunkLanesSub& s, int nb, int c,
-                                   int b, int si) {
-  return s.o_res + ((int64_t)nb * s.S0 + si) * s.res_stride +
-         (int64_t)c * s.Bc + b;
-}
-
-// Output element e of substream s (0 <= e < s.elems), in order: rc_fir,
-// rc_iir, iir_init (rows x 8 each), shift, quant, block_len (rows each),
-// iir_reset (rows, in out8), the zero state (lanes x 8), then in
-// device-Huffman mode bitpos (Lc x nsub), cb, lsbb, off, quant (Lc x n_ch
-// each) and nbyp (Lc).  A parameter row u is lane (c*Bc + b) * NB0 + nb.
-// A substream's elements number below 2^31 (the wrapper checks), so the
+// Output element e of substream s (0 <= e < s.elems), in order: bitpos
+// (Lc x nsub), cb, lsbb, off, quant (Lc x n_ch each) and nbyp (Lc).  A
+// substream's elements number below 2^31 (the wrapper checks), so the
 // index arithmetic is 32-bit: a 64-bit division is a call on the card.
 DVDA_HD void chunk_lanes_element(const ChunkLanesSub& s, const ChunkArenas& A,
-                                 int32_t e, int32_t* __restrict__ out32,
-                                 uint8_t* __restrict__ out8) {
-  const int Bc = (int)s.Bc, NB0 = (int)s.NB0, n_ch = (int)s.n_ch;
-  const int32_t lanes = n_ch * Bc, rows = lanes * NB0;
-  if (e < 28 * rows) {
-    int32_t u, t = 0, k;
-    if (e < 24 * rows) {  // a tap of rc_fir, rc_iir or iir_init
-      k = e < 8 * rows ? 0 : e < 16 * rows ? 1 : 2;
-      const int32_t r = e - k * 8 * rows;
-      u = r >> 3;
-      t = r & 7;
-    } else {  // shift, quant, block_len, iir_reset
-      const int32_t r = e - 24 * rows;
-      k = 3 + (r >= rows) + (r >= 2 * rows) + (r >= 3 * rows);
-      u = r - (k - 3) * rows;
-    }
-    const int lane = u / NB0, nb = u - lane * NB0;
-    const int c = lane / Bc, b = lane - c * Bc;
-    // the source row: the chain's (per chain) or the block's
-    const int64_t src = s.per_chain ? (int64_t)b * n_ch + c
-                                    : ((int64_t)b * NB0 + nb) * n_ch + c;
-    switch (k) {
-      case 0: out32[s.o_fir + 8 * (int64_t)u + t] =
-                  chunk_load(A, s.rc_fir, src * 8 + t); return;
-      case 1: out32[s.o_iir + 8 * (int64_t)u + t] =
-                  chunk_load(A, s.rc_iir, src * 8 + t); return;
-      case 2: out32[s.o_init + 8 * (int64_t)u + t] =
-                  chunk_load(A, s.iir_init, src * 8 + t); return;
-      case 3: out32[s.o_shift + u] = chunk_load(A, s.shift, src); return;
-      case 4: out32[s.o_quant + u] = chunk_load(A, s.quant, src); return;
-      case 5: out32[s.o_blen + u] = (int32_t)s.S0; return;
-      default:  // per chain: the chain's reset in block 0 only
-        out8[s.o_reset + u] = (uint8_t)((!s.per_chain || nb == 0) &&
-                                        chunk_load(A, s.iir_reset, src) != 0);
-        return;
-    }
-  }
-  e -= 28 * rows;
-  if (e < 8 * lanes) {
-    out32[s.o_state + e] = 0;
-    return;
-  }
-  e -= 8 * lanes;
-  // device Huffman: K5's lane inputs, chain-major rows l = b*NB0 + nb
-  const int32_t Lc = Bc * NB0, nsub = (int32_t)s.nsub;
+                                 int32_t e, int32_t* __restrict__ out32) {
+  const int NB0 = (int)s.NB0, n_ch = (int)s.n_ch;
+  const int32_t Lc = (int32_t)s.Bc * NB0, nsub = (int32_t)s.nsub;
   if (e < Lc * nsub) {
     out32[s.o_bitpos + e] = chunk_load(A, s.bitpos, e);
     return;
@@ -213,14 +128,13 @@ DVDA_HD void chunk_lanes_element(const ChunkLanesSub& s, const ChunkArenas& A,
   out32[s.o_nbyp + e] = chunk_load(A, s.nbyp, e);
 }
 
-// The substream and the block's place in it: a residual tile (*tile >= 0)
-// or the first output element of an element block (*tile < 0).
+// The substream of a block of the grid, and the block's first output
+// element there.
 DVDA_HD int chunk_lanes_locate(const ChunkLanesDesc& d, int64_t block,
-                               int64_t* tile, int64_t* elem0) {
+                               int64_t* elem0) {
   int i = 0;
   while (i + 1 < d.n_subs && block >= d.sub[i + 1].block0) ++i;
-  const int64_t r = block - d.sub[i].block0;
-  *tile = r < d.sub[i].tiles ? r : -1;
-  *elem0 = (r - d.sub[i].tiles) * kChunkLanesThreads * kChunkLanesPerThread;
+  *elem0 = (block - d.sub[i].block0) * kChunkLanesThreads *
+           kChunkLanesPerThread;
   return i;
 }

@@ -5,12 +5,14 @@
 // grid.  tests/test_torch_kernel_bodies.py builds this file into a shared
 // library and holds it bit-exact against the plain PyTorch versions.  No
 // decode path uses it.
+#include <stdlib.h>
 #include <string.h>
 
 #include <algorithm>
 #include <vector>
 
 #include "c2_decrypt.cuh"
+#include "chunk_filter.cuh"
 #include "chunk_lanes.cuh"
 #include "frame_remix.cuh"
 #include "general_gather.cuh"
@@ -259,41 +261,120 @@ extern "C" void cpu_huffman_decode(
   }
 }
 
-// K10: the kernel's grid in order, a residual tile staged through a host
-// tile as the kernel stages it through shared memory.  Returns -1 where
-// the kernel's entry would refuse the descriptor.
+// K10: the kernel's grid in order.  Returns -1 where the kernel's entry
+// would refuse the descriptor.
 extern "C" int cpu_chunk_lanes(const int64_t* desc, int64_t n_words,
                                const int32_t* a4, const int16_t* a2,
-                               const int8_t* a1, int32_t* out32,
-                               uint8_t* out8) {
+                               const int8_t* a1, int32_t* out32) {
   if (n_words * 8 != (int64_t)sizeof(ChunkLanesDesc)) return -1;
   ChunkLanesDesc d;
   memcpy(&d, desc, sizeof d);
-  if (d.n_subs < 1 || d.n_subs > kChunkLanesMaxSubs) return -1;
+  if (!chunk_lanes_desc_ok(d)) return -1;
   const ChunkArenas A{a4, a2, a1};
   const int64_t blocks = chunk_lanes_plan(d);
-  int32_t tile[kChunkLanesTile][kChunkLanesTile + 1];
   for (int64_t blk = 0; blk < blocks; ++blk) {
-    int64_t t, e0;
-    const ChunkLanesSub& s = d.sub[chunk_lanes_locate(d, blk, &t, &e0)];
-    if (t >= 0) {
-      int nb, c, b0, s0;
-      chunk_lanes_tile(s, t, &nb, &c, &b0, &s0);
-      for (int r = 0; r < kChunkLanesTile; ++r)
-        for (int x = 0; x < kChunkLanesTile; ++x)
-          if (b0 + r < s.Bc && s0 + x < s.S0)
-            tile[r][x] = chunk_lanes_res_load(s, A, nb, c, b0 + r, s0 + x);
-      for (int r = 0; r < kChunkLanesTile; ++r)
-        for (int x = 0; x < kChunkLanesTile; ++x)
-          if (b0 + x < s.Bc && s0 + r < s.S0)
-            out32[chunk_lanes_res_at(s, nb, c, b0 + x, s0 + r)] = tile[x][r];
-      continue;
-    }
+    int64_t e0;
+    const ChunkLanesSub& s = d.sub[chunk_lanes_locate(d, blk, &e0)];
     for (int k = 0; k < kChunkLanesPerThread; ++k)
       for (int tid = 0; tid < kChunkLanesThreads; ++tid) {
         const int64_t e = e0 + (int64_t)k * kChunkLanesThreads + tid;
-        if (e < s.elems) chunk_lanes_element(s, A, (int32_t)e, out32, out8);
+        if (e < s.elems) chunk_lanes_element(s, A, (int32_t)e, out32);
       }
+  }
+  return 0;
+}
+
+// K1a on one filter group: the kernel's variant for the descriptor, its
+// blocks of kFilterLanes lanes, each thread's lane resolved as on the
+// card, its residual tile staged as the kernel stages it (the granules
+// memcpy'd into a raw area and unstaged, or one load a row; or K5's rows
+// copied in), then K1's sample loop through the arena policy.
+template <bool kUsual, int kResW>
+static void chunk_filter_group(const ChunkLanesDesc& d, const ChunkArenas& A,
+                               const int64_t* n, const int32_t* res_tl,
+                               int32_t* out_tl, int B, int NB, int S) {
+  const int T = NB * S;
+  int32_t tile[kFilterRows][kFilterLanes];
+  static unsigned char raw[kFilterLanes][kChunkRawBytes];
+  for (int lane0 = 0; lane0 < B; lane0 += kFilterLanes) {
+    const int nl = B - lane0 < kFilterLanes ? B - lane0 : kFilterLanes;
+    std::vector<ChunkFilterTables<kUsual>> t(nl);
+    std::vector<ChunkFilterStaging> st(nl);
+    std::vector<bool> granules(nl);
+    MlpFilterLane lanes[kFilterLanes];
+    for (int j = 0; j < nl; ++j) {
+      int c, b;
+      const int i = chunk_filter_locate(d, lane0 + j, &c, &b);
+      ChunkFilterSource src;
+      chunk_filter_lane(d.sub[i], A, c, b, &t[j], &src);
+      mlp_filter_begin(lanes[j], lane0 + j, NB, S, t[j]);
+      if (kResW != 0) {
+        const int w = chunk_filter_w<kResW>(src);
+        st[j] = chunk_filter_staging<kResW>(
+            A, src, n[w == 4 ? 0 : w == 2 ? 1 : 2] * w);
+        granules[j] = chunk_filter_granules_ok(st[j], S);
+      }
+    }
+    for (int t0 = 0; t0 < T; t0 += kFilterRows) {
+      const int rows = T - t0 < kFilterRows ? T - t0 : kFilterRows;
+      int32_t* out = out_tl + (int64_t)t0 * B + lane0;
+      if (kResW == 0) {
+        for (int r = 0; r < rows; ++r)
+          memcpy(tile[r], res_tl + (int64_t)(t0 + r) * B + lane0, 4 * nl);
+        for (int j = 0; j < nl; ++j)
+          mlp_filter_tile(lanes[j], lane0 + j, NB, S, t[j],
+                          MlpFilterColumn{tile, j}, rows, out + j, B);
+        continue;
+      }
+      for (int j = 0; j < nl; ++j) {
+        memset(raw[j], 0xA5, kChunkRawBytes);
+        if (granules[j])
+          chunk_filter_granules<kResW>(
+              st[j], S, t0, rows, [&](int pos, int off, int len) {
+                if (pos + 16 > kChunkRawBytes) abort();  // the card's bound
+                memcpy(raw[j] + pos, st[j].at + off, len);
+              });
+        else
+          chunk_filter_rows<kResW>(st[j], S, t0, rows, raw[j]);
+      }
+      for (int j = 0; j < nl; ++j)
+        mlp_filter_tile(
+            lanes[j], lane0 + j, NB, S, t[j],
+            chunk_filter_runs<kResW>(raw[j], st[j], S, t0, granules[j]),
+            rows, out + j, B);
+    }
+  }
+}
+
+// K1a's entry on the CPU: the kernel entry's checks and its choice of
+// variant.  Returns -1 where the kernel's entry would refuse.
+extern "C" int cpu_chunk_filter(const int64_t* desc, int64_t n_words,
+                                const int32_t* a4, const int16_t* a2,
+                                const int8_t* a1, int64_t n4, int64_t n2,
+                                int64_t n1, const int32_t* res_tl,
+                                int32_t* out_tl, int B, int NB, int S) {
+  if (n_words * 8 != (int64_t)sizeof(ChunkLanesDesc)) return -1;
+  ChunkLanesDesc d;
+  memcpy(&d, desc, sizeof d);
+  if (!chunk_filter_desc_ok(d, B, NB, S, res_tl != nullptr)) return -1;
+  const ChunkArenas A{a4, a2, a1};
+  const int64_t n[3] = {n4, n2, n1};
+  const int rw = chunk_filter_res_width(d, res_tl != nullptr);
+  if (!chunk_filter_usual(d)) {
+    if (rw == 0)
+      chunk_filter_group<false, 0>(d, A, n, res_tl, out_tl, B, NB, S);
+    else
+      chunk_filter_group<false, kChunkResAny>(d, A, n, res_tl, out_tl, B,
+                                              NB, S);
+  } else if (rw == 0) {
+    chunk_filter_group<true, 0>(d, A, n, res_tl, out_tl, B, NB, S);
+  } else if (rw == 2) {
+    chunk_filter_group<true, 2>(d, A, n, res_tl, out_tl, B, NB, S);
+  } else if (rw == 4) {
+    chunk_filter_group<true, 4>(d, A, n, res_tl, out_tl, B, NB, S);
+  } else {
+    chunk_filter_group<false, kChunkResAny>(d, A, n, res_tl, out_tl, B, NB,
+                                            S);
   }
   return 0;
 }
@@ -307,23 +388,22 @@ extern "C" void cpu_mlp_filter(
   // the kernel's blocks of kFilterLanes lanes, each walking its rows in
   // tiles of kFilterRows staged into a local copy, as the card's shared
   // memory holds them
-  const MlpFilterTables t{rc_fir, rc_iir, shift, quant, iir_reset, iir_init,
-                          block_len};
+  const MlpFilterTables t{rc_fir,   rc_iir,   shift,     quant,     iir_reset,
+                          iir_init, block_len, fir_state0, iir_state0};
   const int64_t T = (int64_t)NB * S;
   int32_t tile[kFilterRows][kFilterLanes];
   for (int lane0 = 0; lane0 < B; lane0 += kFilterLanes) {
     const int nl = B - lane0 < kFilterLanes ? B - lane0 : kFilterLanes;
     MlpFilterLane lanes[kFilterLanes];
     for (int j = 0; j < nl; ++j)
-      mlp_filter_begin(lanes[j], lane0 + j, NB, S, t, fir_state0,
-                       iir_state0);
+      mlp_filter_begin(lanes[j], lane0 + j, NB, S, t);
     for (int64_t t0 = 0; t0 < T; t0 += kFilterRows) {
       const int rows = T - t0 < kFilterRows ? (int)(T - t0) : kFilterRows;
       for (int r = 0; r < rows; ++r)
         memcpy(tile[r], res_tl + (t0 + r) * B + lane0, 4 * nl);
       for (int j = 0; j < nl; ++j)
-        mlp_filter_tile(lanes[j], lane0 + j, NB, S, t, tile, j, rows,
-                        out_tl + t0 * B + lane0 + j, B);
+        mlp_filter_tile(lanes[j], lane0 + j, NB, S, t, MlpFilterColumn{tile, j},
+                        rows, out_tl + t0 * B + lane0 + j, B);
     }
     for (int j = 0; j < nl; ++j)
       mlp_filter_end(lanes[j], lane0 + j, fir_state, iir_state);

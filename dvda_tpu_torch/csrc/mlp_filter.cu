@@ -46,65 +46,36 @@
 
 namespace {
 
-constexpr int kStages = 3;  // residual tiles in flight
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-
-// Rows [t0, t0 + kFilterRows) of the block's lanes into one stage: 16 bytes
-// a copy when ``vec`` (B % 4 == 0 and an aligned base: a quarter-row of 4
-// lanes is then all inside B or all outside), else 4 bytes a lane.
-__device__ __forceinline__ void stage_tile(int32_t (*dst)[kFilterLanes],
-                                           const int32_t* __restrict__ res,
-                                           int64_t t0, int64_t T, int B,
-                                           int lane0, bool vec) {
-  const int tid = threadIdx.x;
-  if (vec) {
-#pragma unroll
-    for (int u = 0; u < kFilterRows * kFilterLanes / 4 / kFilterLanes; ++u) {
-      const int c = tid + u * kFilterLanes, r = c >> 3, q = (c & 7) * 4;
-      if (t0 + r < T && lane0 + q < B)
-        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
-                         smem_addr(&dst[r][q])),
-                     "l"(res + (t0 + r) * B + lane0 + q));
-    }
-  } else if (lane0 + tid < B) {
-    for (int r = 0; r < kFilterRows && t0 + r < T; ++r)
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
-                       smem_addr(&dst[r][tid])),
-                   "l"(res + (t0 + r) * B + lane0 + tid));
-  }
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
 __global__ void __launch_bounds__(kFilterLanes) mlp_filter_kernel(
     int B, int NB, int S, bool vec, const int32_t* __restrict__ res_tl,
-    MlpFilterTables t, const int32_t* __restrict__ fir_state0,
-    const int32_t* __restrict__ iir_state0, int32_t* __restrict__ out_tl,
+    MlpFilterTables t, int32_t* __restrict__ out_tl,
     int32_t* __restrict__ fir_state, int32_t* __restrict__ iir_state) {
-  __shared__ __align__(16) int32_t s_res[kStages][kFilterRows][kFilterLanes];
+  __shared__ __align__(16) int32_t
+      s_res[kFilterStages][kFilterRows][kFilterLanes];
   const int lane0 = blockIdx.x * kFilterLanes;
   const int lane = lane0 + threadIdx.x;
   const bool live = lane < B;
   const int64_t T = (int64_t)NB * S;
   const int tiles = (int)((T + kFilterRows - 1) / kFilterRows);
 #pragma unroll
-  for (int s = 0; s < kStages - 1; ++s)
+  for (int s = 0; s < kFilterStages - 1; ++s)
     stage_tile(s_res[s], res_tl, (int64_t)s * kFilterRows, T, B, lane0, vec);
   MlpFilterLane L;
-  if (live) mlp_filter_begin(L, lane, NB, S, t, fir_state0, iir_state0);
+  if (live) mlp_filter_begin(L, lane, NB, S, t);
   for (int k = 0; k < tiles; ++k) {
-    // the tile kStages - 1 ahead goes into the stage read two tiles ago
-    stage_tile(s_res[(k + kStages - 1) % kStages], res_tl,
-               (int64_t)(k + kStages - 1) * kFilterRows, T, B, lane0, vec);
-    asm volatile("cp.async.wait_group %0;\n" ::"n"(kStages - 1));
+    // the tile kFilterStages - 1 ahead goes into the stage read two tiles
+    // ago
+    const int ahead = k + kFilterStages - 1;
+    stage_tile(s_res[ahead % kFilterStages], res_tl,
+               (int64_t)ahead * kFilterRows, T, B, lane0, vec);
+    asm volatile("cp.async.wait_group %0;\n" ::"n"(kFilterStages - 1));
     __syncthreads();
-    const int32_t(*tile)[kFilterLanes] = s_res[k % kStages];
+    const int32_t(*tile)[kFilterLanes] = s_res[k % kFilterStages];
     const int64_t t0 = (int64_t)k * kFilterRows;
     const int rows = (int)min((int64_t)kFilterRows, T - t0);
     if (live)
-      mlp_filter_tile(L, lane, NB, S, t, tile, threadIdx.x, rows,
+      mlp_filter_tile(L, lane, NB, S, t,
+                      MlpFilterColumn{tile, (int)threadIdx.x}, rows,
                       out_tl + t0 * B + lane, B);
     __syncthreads();
   }
@@ -125,10 +96,9 @@ extern "C" int dvda_mlp_filter(
   if (B <= 0) return 0;
   const bool vec = B % 4 == 0 && (uintptr_t)res_tl % 16 == 0;
   const int blocks = (B + kFilterLanes - 1) / kFilterLanes;
-  const MlpFilterTables t{rc_fir, rc_iir, shift, quant, iir_reset, iir_init,
-                          block_len};
+  const MlpFilterTables t{rc_fir,   rc_iir,   shift,     quant,     iir_reset,
+                          iir_init, block_len, fir_state0, iir_state0};
   mlp_filter_kernel<<<blocks, kFilterLanes, 0, (cudaStream_t)stream>>>(
-      B, NB, S, vec, res_tl, t, fir_state0, iir_state0, out_tl, fir_state,
-      iir_state);
+      B, NB, S, vec, res_tl, t, out_tl, fir_state, iir_state);
   return (int)cudaGetLastError();
 }

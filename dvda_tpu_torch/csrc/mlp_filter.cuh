@@ -26,9 +26,11 @@
 // sums all 16 terms with its own taps (after the IIR reset); a frozen
 // sample (i >= block_len) shifts nothing, so acc and part stay.
 //
-// The caller supplies each sample's residual (the kernel from shared
-// memory, the CPU harness from a host copy of the same tile), and the
-// next block's parameters are loaded one block ahead into registers.
+// The caller supplies the residuals through an accessor of the staged
+// tile (MlpFilterColumn: K1's int32 tile in shared memory, or the CPU
+// harness's host copy; K1a's in chunk_filter.cuh), and the next block's
+// parameters are loaded one block ahead into registers by a parameter
+// policy (MlpFilterTables; K1a's ChunkFilterTables).
 // Eight live samples of one block (kFilterGroup) whose taps allow float64
 // run as one straight-line group (mlp_filter_run_f64), where the state is
 // renamed rather than shifted, the 12 products of the next partial sum
@@ -50,6 +52,19 @@ constexpr int kFilterLanes = 32;
 constexpr int kFilterRows = 32;
 constexpr int kFilterGroup = 8;
 
+// One block's parameters of one lane.
+struct MlpFilterBlock {
+  int32_t fc[8], ic[8], init[8];
+  int32_t sh, q, blen, rst;
+};
+
+// Where a lane's parameters and initial state come from: the sample loop
+// below is a template on this policy.  A policy has
+//   load(p, lane, nb, NB)  block nb's parameters of ``lane`` into p
+//   state0(fs, is, lane)   the lane's initial FIR and IIR state
+// MlpFilterTables reads K1's ten arrays (the layouts above);
+// ChunkFilterTables (K1a, chunk_filter.cuh) reads a lane's rows straight
+// from the chunk arenas.
 struct MlpFilterTables {
   const int32_t* __restrict__ rc_fir;
   const int32_t* __restrict__ rc_iir;
@@ -58,12 +73,30 @@ struct MlpFilterTables {
   const uint8_t* __restrict__ iir_reset;
   const int32_t* __restrict__ iir_init;
   const int32_t* __restrict__ block_len;
-};
+  const int32_t* __restrict__ fir_state0;
+  const int32_t* __restrict__ iir_state0;
 
-// One block's parameters of one lane.
-struct MlpFilterBlock {
-  int32_t fc[8], ic[8], init[8];
-  int32_t sh, q, blen, rst;
+  DVDA_HD void load(MlpFilterBlock& p, int lane, int nb, int NB) const {
+    const int64_t pb = (int64_t)lane * NB + nb;
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      p.fc[k] = rc_fir[pb * 8 + k];
+      p.ic[k] = rc_iir[pb * 8 + k];
+      p.init[k] = iir_init[pb * 8 + k];
+    }
+    p.sh = shift[pb];
+    p.q = quant[pb];
+    p.blen = block_len[pb];
+    p.rst = iir_reset[pb];
+  }
+
+  DVDA_HD void state0(int32_t* fs, int32_t* is, int lane) const {
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+      fs[k] = fir_state0[lane * 8 + k];
+      is[k] = iir_state0[lane * 8 + k];
+    }
+  }
 };
 
 struct MlpFilterLane {
@@ -114,21 +147,6 @@ DVDA_HD int32_t mlp_filter_shr_d(double x, double scale) {
 #endif
 }
 
-
-DVDA_HD void mlp_filter_load_block(MlpFilterBlock& p, int64_t pb,
-                                   const MlpFilterTables& t) {
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    p.fc[k] = t.rc_fir[pb * 8 + k];
-    p.ic[k] = t.rc_iir[pb * 8 + k];
-    p.init[k] = t.iir_init[pb * 8 + k];
-  }
-  p.sh = t.shift[pb];
-  p.q = t.quant[pb];
-  p.blen = t.block_len[pb];
-  p.rst = t.iir_reset[pb];
-}
-
 DVDA_HD uint64_t mlp_filter_term(int32_t c, int32_t x) {
   return (uint64_t)((int64_t)c * x);
 }
@@ -146,8 +164,9 @@ DVDA_HD uint64_t mlp_filter_partial(const MlpFilterLane& L) {
 
 // Enter block L.nb: its parameters (loaded one block ahead), the IIR
 // reset, the full sum of its first sample; then load the next block's.
+template <class Tables>
 DVDA_HD void mlp_filter_enter(MlpFilterLane& L, int lane, int NB,
-                              const MlpFilterTables& t) {
+                              const Tables& t) {
   L.cur = L.nxt;
   if (L.cur.rst) {
 #pragma unroll
@@ -185,39 +204,35 @@ DVDA_HD void mlp_filter_enter(MlpFilterLane& L, int lane, int NB,
     L.acc = acc;
     L.part = mlp_filter_partial(L);
   }
-  if (L.nb + 1 < NB)
-    mlp_filter_load_block(L.nxt, (int64_t)lane * NB + L.nb + 1, t);
+  if (L.nb + 1 < NB) t.load(L.nxt, lane, L.nb + 1, NB);
 }
 
+template <class Tables>
 DVDA_HD void mlp_filter_begin(MlpFilterLane& L, int lane, int NB, int S,
-                              const MlpFilterTables& t,
-                              const int32_t* __restrict__ fir_state0,
-                              const int32_t* __restrict__ iir_state0) {
-#pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    L.fs[k] = fir_state0[lane * 8 + k];
-    L.is[k] = iir_state0[lane * 8 + k];
-  }
+                              const Tables& t) {
+  t.state0(L.fs, L.is, lane);
   L.nb = 0;
   L.i = 0;
   if (S <= 0) {  // no samples: only the resets act
-    for (int nb = 0; nb < NB; ++nb)
-      if (t.iir_reset[(int64_t)lane * NB + nb]) {
+    for (int nb = 0; nb < NB; ++nb) {
+      t.load(L.nxt, lane, nb, NB);
+      if (L.nxt.rst) {
 #pragma unroll
-        for (int k = 0; k < 8; ++k)
-          L.is[k] = t.iir_init[((int64_t)lane * NB + nb) * 8 + k];
+        for (int k = 0; k < 8; ++k) L.is[k] = L.nxt.init[k];
       }
+    }
     return;
   }
   if (NB > 0) {
-    mlp_filter_load_block(L.nxt, (int64_t)lane * NB, t);
+    t.load(L.nxt, lane, 0, NB);
     mlp_filter_enter(L, lane, NB, t);
   }
 }
 
 // One sample: its residual in, its output value back.  Call NB * S times.
+template <class Tables>
 DVDA_HD int32_t mlp_filter_step(MlpFilterLane& L, int lane, int NB, int S,
-                                int32_t residual, const MlpFilterTables& t) {
+                                int32_t residual, const Tables& t) {
   if (L.i == S) {
     ++L.nb;
     mlp_filter_enter(L, lane, NB, t);
@@ -251,14 +266,28 @@ DVDA_HD int32_t mlp_filter_shr(uint64_t acc, int sh) {
 #endif
 }
 
+// A lane's staged residuals as K1 keeps them: column ``col`` of a tile of
+// int32 rows (the residual source of the sample loop: ``res(row)``, and
+// ``group(row, v)``, rows [row, row + kFilterGroup)).
+struct MlpFilterColumn {
+  const int32_t (*tile)[kFilterLanes];
+  int col;
+  DVDA_HD int32_t operator()(int row) const { return tile[row][col]; }
+  DVDA_HD void group(int row, int32_t* v) const {
+#pragma unroll
+    for (int j = 0; j < kFilterGroup; ++j) v[j] = tile[row + j][col];
+  }
+};
+
 // How the next kFilterGroup samples of the current block run (entering the
 // block first if the last one ended): kFilterLive, all live and float64
 // taps, by mlp_filter_run_f64; kFilterFrozen, all past block_len, by
 // mlp_filter_frozen; else kFilterSingle, one mlp_filter_step each.  The
 // groups start at fixed rows, so the lanes of a warp stay in step.
 enum { kFilterSingle = 0, kFilterLive = 1, kFilterFrozen = 2 };
+template <class Tables>
 DVDA_HD int mlp_filter_group_kind(MlpFilterLane& L, int lane, int NB, int S,
-                                  const MlpFilterTables& t) {
+                                  const Tables& t) {
   if (L.i == S) {
     ++L.nb;
     mlp_filter_enter(L, lane, NB, t);
@@ -269,34 +298,34 @@ DVDA_HD int mlp_filter_group_kind(MlpFilterLane& L, int lane, int NB, int S,
   return L.i >= L.cur.blen ? kFilterFrozen : kFilterSingle;
 }
 
-// kFilterGroup frozen samples, rows [row, row + kFilterGroup) of column
-// ``col`` of a staged tile: the state and the sum stay.  Each value to
-// out[j * B].
-DVDA_HD void mlp_filter_frozen(MlpFilterLane& L,
-                               const int32_t (*tile)[kFilterLanes], int col,
-                               int row, int32_t* __restrict__ out, int B) {
+// kFilterGroup frozen samples, rows [row, row + kFilterGroup) of the
+// lane's staged residuals ``res``: the state and the sum stay.  Each
+// value to out[j * B].
+template <class Res>
+DVDA_HD void mlp_filter_frozen(MlpFilterLane& L, const Res& res, int row,
+                               int32_t* __restrict__ out, int B) {
   const int32_t shifted = mlp_filter_shr(L.acc, L.cur.sh);
+  int32_t r[kFilterGroup];
+  res.group(row, r);
 #pragma unroll
   for (int j = 0; j < kFilterGroup; ++j)
     out[(int64_t)j * B] =
-        (int32_t)(((uint32_t)shifted + (uint32_t)tile[row + j][col]) &
-                  L.mask);
+        (int32_t)(((uint32_t)shifted + (uint32_t)r[j]) & L.mask);
   L.i += kFilterGroup;
 }
 
 // kFilterGroup live samples of one block (L.dbl), rows [row, row + N) of
-// column ``col`` of a staged tile; each value to out[j * B].  Same sums as
+// the lane's staged residuals; each value to out[j * B].  Same sums as
 // mlp_filter_step, in float64, where every product and partial sum is an
 // integer below 2^51 and so exact, with the next partial sum split as
 //   part' = (taps 0-5 over state entries 2-7) + fc[6]*value + ic[6]*error.
-DVDA_HD void mlp_filter_run_f64(MlpFilterLane& L,
-                                const int32_t (*tile)[kFilterLanes], int col,
-                                int row, int32_t* __restrict__ out, int B) {
+template <class Res>
+DVDA_HD void mlp_filter_run_f64(MlpFilterLane& L, const Res& staged, int row,
+                                int32_t* __restrict__ out, int B) {
   constexpr int N = kFilterGroup;
   int32_t res[N], f[8 + N], e[8 + N];
   double fd[8 + N], ed[8 + N];
-#pragma unroll
-  for (int j = 0; j < N; ++j) res[j] = tile[row + j][col];
+  staged.group(row, res);
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
     f[k] = L.fs[k];
@@ -338,14 +367,15 @@ DVDA_HD void mlp_filter_run_f64(MlpFilterLane& L,
   L.i += N;
 }
 
-// Rows [0, rows) of a staged residual tile, column ``col``, through the
+// Rows [0, rows) of the lane's staged residual tile ``res`` through the
 // lane, in groups of kFilterGroup samples where the block allows; each
-// value to out[r * B] (out: the tile's first row, this lane).
+// value to out[r * B] (out: the tile's first row, this lane).  A group
+// lies in one filter block.
 static_assert(kFilterRows % kFilterGroup == 0, "groups divide a tile");
+template <class Tables, class Res>
 DVDA_HD void mlp_filter_tile(MlpFilterLane& L, int lane, int NB, int S,
-                             const MlpFilterTables& t,
-                             const int32_t (*tile)[kFilterLanes], int col,
-                             int rows, int32_t* __restrict__ out, int B) {
+                             const Tables& t, const Res& res, int rows,
+                             int32_t* __restrict__ out, int B) {
   constexpr int G = kFilterGroup;
   for (int r = 0; r < rows; r += G) {
     int32_t* __restrict__ o = out + (int64_t)r * B;
@@ -353,12 +383,12 @@ DVDA_HD void mlp_filter_tile(MlpFilterLane& L, int lane, int NB, int S,
                          ? mlp_filter_group_kind(L, lane, NB, S, t)
                          : kFilterSingle;
     if (kind == kFilterLive) {
-      mlp_filter_run_f64(L, tile, col, r, o, B);
+      mlp_filter_run_f64(L, res, r, o, B);
     } else if (kind == kFilterFrozen) {
-      mlp_filter_frozen(L, tile, col, r, o, B);
+      mlp_filter_frozen(L, res, r, o, B);
     } else {
       for (int j = 0; j < G && r + j < rows; ++j)
-        o[(int64_t)j * B] = mlp_filter_step(L, lane, NB, S, tile[r + j][col], t);
+        o[(int64_t)j * B] = mlp_filter_step(L, lane, NB, S, res(r + j), t);
     }
   }
 }
@@ -372,3 +402,39 @@ DVDA_HD void mlp_filter_end(const MlpFilterLane& L, int lane,
     iir_state[lane * 8 + k] = L.is[k];
   }
 }
+
+#if defined(__CUDACC__)
+// Staging on the card (K1's and K1a's kernels): kFilterStages residual
+// tiles in flight, copied by cp.async.
+constexpr int kFilterStages = 3;
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
+}
+
+// Rows [t0, t0 + kFilterRows) of the block's lanes into one stage: 16 bytes
+// a copy when ``vec`` (B % 4 == 0 and an aligned base: a quarter-row of 4
+// lanes is then all inside B or all outside), else 4 bytes a lane.
+__device__ __forceinline__ void stage_tile(int32_t (*dst)[kFilterLanes],
+                                           const int32_t* __restrict__ res,
+                                           int64_t t0, int64_t T, int B,
+                                           int lane0, bool vec) {
+  const int tid = threadIdx.x;
+  if (vec) {
+#pragma unroll
+    for (int u = 0; u < kFilterRows * kFilterLanes / 4 / kFilterLanes; ++u) {
+      const int c = tid + u * kFilterLanes, r = c >> 3, q = (c & 7) * 4;
+      if (t0 + r < T && lane0 + q < B)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                         smem_addr(&dst[r][q])),
+                     "l"(res + (t0 + r) * B + lane0 + q));
+    }
+  } else if (lane0 + tid < B) {
+    for (int r = 0; r < kFilterRows && t0 + r < T; ++r)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                       smem_addr(&dst[r][tid])),
+                   "l"(res + (t0 + r) * B + lane0 + tid));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+#endif

@@ -28,6 +28,7 @@ __all__ = ["kernel_library", "build_kernels", "LIB_PATH", "CU_SOURCES"]
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _CSRC = os.path.join(_PKG, "csrc")
 CU_SOURCES = [os.path.join(_CSRC, f) for f in ("c2_decrypt.cu",
+                                               "chunk_filter.cu",
                                                "chunk_lanes.cu",
                                                "frame_remix.cu",
                                                "general_gather.cu",
@@ -36,6 +37,7 @@ CU_SOURCES = [os.path.join(_CSRC, f) for f in ("c2_decrypt.cu",
                                                "output_stage.cu",
                                                "pcm_unpack.cu")]
 _HEADERS = [os.path.join(_CSRC, f) for f in ("c2_decrypt.cuh",
+                                             "chunk_filter.cuh",
                                              "chunk_lanes.cuh",
                                              "dvda_hd.cuh",
                                              "frame_remix.cuh",
@@ -124,7 +126,10 @@ def kernel_library() -> ctypes.CDLL:
     lib.dvda_c2_decrypt.restype = i
     lib.dvda_c2_decrypt.argtypes = [p, i64, ctypes.c_uint64, i, p, p, p]
     lib.dvda_chunk_lanes.restype = i
-    lib.dvda_chunk_lanes.argtypes = [p, i64] + [p] * 5 + [p]
+    lib.dvda_chunk_lanes.argtypes = [p, i64] + [p] * 4 + [p]
+    lib.dvda_chunk_filter.restype = i
+    lib.dvda_chunk_filter.argtypes = ([p, i64] + [p] * 3 + [i64] * 3
+                                      + [p] * 2 + [i] * 3 + [p])
     lib.dvda_frame_remix.restype = i
     lib.dvda_frame_remix.argtypes = [p] * 10 + [i] * 5 + [ctypes.c_uint, p]
     lib.dvda_lane_pack.restype = i

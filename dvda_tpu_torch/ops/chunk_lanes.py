@@ -1,10 +1,12 @@
-"""The chunk program's arena front end — kernel K10 and its plain version.
+"""The chunk program's arena front end: its plain version, the chunk
+descriptor, and kernel K10 (a device-Huffman chunk's K5 inputs).
 
 Port of dvda_tpu/codecs/mlp/native_engine.py:111-267, the part of the
 uniform chunk program (``_uniform_arena_pipeline``) between the arenas and
 the filter.  From the three chunk arenas (int32/int16/int8) and their
-static spec it makes exactly the arrays dvda_tpu hands its filter, per
-filter launch (:219-222 after the :239-250 fuse):
+static spec, :func:`chunk_lanes_reference` makes exactly the arrays
+dvda_tpu hands its filter, per filter launch (:219-222 after the :239-250
+fuse):
 
   * ``res_tl`` int32 ``[NB0, S0, lanes]``: each substream's residuals
     ``[Bc, NB0, n_ch, S0]`` transposed time-leading, lane ``c*Bc + b``
@@ -18,11 +20,17 @@ filter launch (:219-222 after the :239-250 fuse):
 substreams of one ``(NB0, S0)`` fused on the lane axis into one launch,
 and in device-Huffman mode K5's int32 lane inputs per substream (bitpos
 ``[Lc, nsub]``; codebook, lsb_bits, offset, quant ``[Lc, n_ch]``; nbyp
-``[Lc]``; ``Lc = Bc*NB0`` chain-major rows; :140-172).
+``[Lc]``; ``Lc = Bc*NB0`` chain-major rows; :140-172).  It is the front
+half of the plain version of K1a (``ops/chunk_filter.py``), which reads
+the filter's inputs from the arenas itself: on the card they are never
+made.
 
-On a CUDA tensor :func:`chunk_lanes` launches csrc/chunk_lanes.cu once
-(every output a view of two fresh buffers) or raises; on a CPU tensor it
-runs :func:`chunk_lanes_reference`, the eager PyTorch version.
+:func:`chunk_layout` describes a chunk once per spec: its substreams,
+filter launches and the kernels' descriptors.  :func:`chunk_lanes` makes
+what K1a does not read, for a device-Huffman chunk: K5's lane inputs and,
+per filter launch, the uninitialised ``res_tl`` that K5 fills.  On a CUDA
+tensor it launches csrc/chunk_lanes.cu once (every output a view of one
+fresh buffer) or raises; on a CPU tensor it runs the plain version.
 """
 
 from __future__ import annotations
@@ -35,8 +43,8 @@ import torch
 
 from ..kernels.launch import current_stream, on_cuda, raise_on_error
 
-__all__ = ["ChunkLanes", "chunk_lanes", "chunk_lanes_reference",
-           "chunk_layout"]
+__all__ = ["ChunkLanes", "check_arenas", "chunk_lanes",
+           "chunk_lanes_reference", "chunk_layout"]
 
 #: substreams a chunk may hold (csrc/chunk_lanes.cuh kChunkLanesMaxSubs)
 MAX_SUBSTREAMS = 4
@@ -45,23 +53,27 @@ _PARAMS = ("rc_fir", "rc_iir", "iir_init", "shift", "quant", "iir_reset")
 _HUFFMAN = ("bitpos", "cb", "lsbb", "off", "nbyp")
 #: the descriptor's arrays and outputs, in ChunkLanesSub's field order
 _IN = ("res",) + _PARAMS + _HUFFMAN
-_OUT = ("res", "res_stride", "fir", "iir", "init", "shift", "quant", "blen",
-        "reset", "state", "bitpos", "cb", "lsbb", "off", "hquant", "nbyp")
-_SUB_WORDS = 6 + 2 * len(_IN) + len(_OUT) + 4
+_OUT = ("bitpos", "cb", "lsbb", "off", "hquant", "nbyp")
+_SUB_WORDS = 6 + 2 * len(_IN) + len(_OUT) + 3
+_HEAD_WORDS = 1  # n_subs
 _ALIGN = 64  # every output region starts on 256 bytes
 
 
 class ChunkLanes(NamedTuple):
-    """K10's outputs for one chunk."""
+    """The front end's outputs for one chunk."""
     #: per filter launch: K1's ten arguments (``res_tl``, ``rc_fir``,
     #: ``rc_iir``, ``shift``, ``quant``, ``iir_reset``, ``iir_init``,
-    #: ``block_len``, ``fir_state0``, ``iir_state0``)
-    filters: list
+    #: ``block_len``, ``fir_state0``, ``iir_state0``); None from
+    #: :func:`chunk_lanes`
+    filters: list | None
     #: per substream: K5's lane inputs (``bitpos``, ``codebook``,
     #: ``lsb_bits``, ``offset``, ``quant``, ``nbyp``), None in standard mode
     huffman: list
     #: per substream: (its filter launch, its first lane there)
     places: tuple
+    #: per filter launch: the int32 ``res_tl`` [NB0, S0, lanes] (the
+    #: first of ``filters``; in device Huffman the buffer K5 fills)
+    residuals: list
 
 
 class _Layout(NamedTuple):
@@ -69,11 +81,12 @@ class _Layout(NamedTuple):
     groups: tuple    # per filter launch: (NB0, S0, lanes, substreams)
     places: tuple    # per substream: (group, first lane)
     huffman: bool
-    regions: dict    # ("fir", g) / ("bitpos", i) ... -> (offset, shape)
-    n32: int         # int32 outputs
-    n8: int          # bool outputs
+    regions: dict    # K10's: ("res", g) / ("bitpos", i) ... -> (offset, shape)
+    n32: int         # K10's int32 outputs
     need: tuple      # the least length of each arena (4, 2, 1)
-    desc: np.ndarray  # the kernel's descriptor (int64 words)
+    desc: np.ndarray  # the chunk's descriptor (int64 words; K10's)
+    #: per filter launch: the descriptor of its substreams alone (K1a's)
+    group_descs: tuple
 
 
 def _signed_width(name: str, entry: tuple) -> int:
@@ -86,15 +99,16 @@ def _signed_width(name: str, entry: tuple) -> int:
 
 @functools.lru_cache(maxsize=64)
 def chunk_layout(spec: tuple) -> _Layout:
-    """The chunk's substreams, filter launches, output regions and K10's
-    descriptor, from its spec alone (the spec is static per track
-    geometry, so this runs once per geometry)."""
+    """The chunk's substreams, filter launches, K10's output regions (a
+    device-Huffman chunk's) and the kernels' descriptors, from its spec
+    alone (the spec is static per track geometry, so this runs once per
+    geometry)."""
     entries = {e[0]: e for e in spec if e[4] != "flag"}
     flags = {e[0]: e[2] for e in spec if e[4] == "flag"}
     n_sub = max(int(name[1]) for name in entries if name.startswith("s")) + 1
     if n_sub > MAX_SUBSTREAMS:
-        raise ValueError(f"{n_sub} substreams: K10 takes at most "
-                         f"{MAX_SUBSTREAMS}")
+        raise ValueError(f"{n_sub} substreams: a chunk descriptor holds "
+                         f"at most {MAX_SUBSTREAMS}")
     modes = {f"s{i}_bitpos" in entries for i in range(n_sub)}
     if len(modes) != 1:
         raise ValueError("a chunk's substreams mix device-Huffman tables "
@@ -136,12 +150,8 @@ def chunk_layout(spec: tuple) -> _Layout:
             places[i] = (g, lanes)
             lanes += subs[i][2] * subs[i][0]
         groups.append((NB0, S0, lanes, m))
-        region(("res", g), (NB0, S0, lanes))
-        for k in ("fir", "iir", "init"):
-            region((k, g), (lanes, NB0, 8))
-        for k in ("shift", "quant", "blen"):
-            region((k, g), (lanes, NB0))
-        region(("state", g), (lanes, 8))
+        if huffman:  # K5's output, K1a's input
+            region(("res", g), (NB0, S0, lanes))
     if huffman:
         for i, (Bc, NB0, n_ch, S0, nsub, _) in enumerate(subs):
             Lc = Bc * NB0
@@ -149,73 +159,63 @@ def chunk_layout(spec: tuple) -> _Layout:
             for k in ("cb", "lsbb", "off", "hquant"):
                 region((k, i), (Lc, n_ch))
             region(("nbyp", i), (Lc,))
-    n32, top = top, 0
-    for g, (NB0, _, lanes, _) in enumerate(groups):
-        region(("reset", g), (lanes, NB0))
-    n8 = top
-    if n32 + n8 >= 2**31:
-        raise ValueError(f"a chunk of {n32 + n8} outputs: K10 indexes a "
+    n32 = top
+    if n32 >= 2**31:
+        raise ValueError(f"a chunk of {n32} outputs: K10 indexes a "
                          "substream's outputs in 32 bits")
 
-    desc = np.zeros(1 + MAX_SUBSTREAMS * _SUB_WORDS, np.int64)
+    desc = np.zeros(_HEAD_WORDS + MAX_SUBSTREAMS * _SUB_WORDS, np.int64)
     desc[0] = n_sub
     need = {4: 0, 2: 0, 1: 0}
     for i, (Bc, NB0, n_ch, S0, nsub, per_chain) in enumerate(subs):
-        g, lane0 = places[i]
-        lanes = groups[g][2]
         words = [Bc, NB0, n_ch, S0, nsub, int(per_chain)]
         for k in _IN:
             off, width = arrays[i][k]
             words += [off, width]
-        # the substream's first element in each output: its first lane
-        # in the group's rows (res_tl), or its first row (the others)
-        at = {"res": regions[("res", g)][0] + lane0, "res_stride": lanes,
-              "state": regions[("state", g)][0] + lane0 * 8}
-        at.update((k, regions[(k, g)][0] + lane0 * NB0 * 8)
-                  for k in ("fir", "iir", "init"))
-        at.update((k, regions[(k, g)][0] + lane0 * NB0)
-                  for k in ("shift", "quant", "blen", "reset"))
-        at.update((k, regions[(k, i)][0] if huffman else 0)
-                  for k in ("bitpos", "cb", "lsbb", "off", "hquant", "nbyp"))
-        words += [at[k] for k in _OUT] + [0] * 4  # + the launcher's plan
-        base = 1 + i * _SUB_WORDS
+        # K10's outputs of the substream (none in standard mode)
+        words += [regions[(k, i)][0] if huffman else 0 for k in _OUT]
+        words += [0] * 3  # the plan
+        base = _HEAD_WORDS + i * _SUB_WORDS
         desc[base : base + _SUB_WORDS] = words
+    # K1a's: one descriptor per filter launch, its substreams in lane order
+    group_descs = []
+    for _, _, _, m in groups:
+        gd = np.zeros_like(desc)
+        gd[0] = len(m)
+        for j, i in enumerate(m):
+            src = _HEAD_WORDS + i * _SUB_WORDS
+            dst = _HEAD_WORDS + j * _SUB_WORDS
+            gd[dst : dst + _SUB_WORDS] = desc[src : src + _SUB_WORDS]
+        group_descs.append(gd)
     for name, e in entries.items():
         if name.startswith("s") and name[1].isdigit():
             n = int(np.prod(e[3])) if e[3] else 1
             need[e[1]] = max(need[e[1]], e[2] + n)
     return _Layout(tuple(subs), tuple(groups), tuple(places), huffman,
-                   regions, n32, n8, (need[4], need[2], need[1]), desc)
+                   regions, n32, (need[4], need[2], need[1]), desc,
+                   tuple(group_descs))
 
 
-def _views(lay: _Layout, out32: torch.Tensor,
-           out8: torch.Tensor) -> ChunkLanes:
-    def view(buf, key):
+def _views(lay: _Layout, out32: torch.Tensor) -> ChunkLanes:
+    def view(key):
         off, shape = lay.regions[key]
-        return buf.narrow(0, off, int(np.prod(shape))).view(shape)
+        return out32.narrow(0, off, int(np.prod(shape))).view(shape)
 
-    filters = []
-    for g in range(len(lay.groups)):
-        state = view(out32, ("state", g))
-        filters.append((view(out32, ("res", g)), view(out32, ("fir", g)),
-                        view(out32, ("iir", g)), view(out32, ("shift", g)),
-                        view(out32, ("quant", g)), view(out8, ("reset", g)),
-                        view(out32, ("init", g)), view(out32, ("blen", g)),
-                        state, state))
-    huffman = [tuple(view(out32, (k, i)) for k in
-                     ("bitpos", "cb", "lsbb", "off", "hquant", "nbyp"))
-               if lay.huffman else None for i in range(len(lay.subs))]
-    return ChunkLanes(filters, huffman, lay.places)
+    return ChunkLanes(None, [tuple(view((k, i)) for k in _OUT)
+                             for i in range(len(lay.subs))],
+                      lay.places,
+                      [view(("res", g)) for g in range(len(lay.groups))])
 
 
 def _i32(x):
-    return x.to(torch.int32, memory_format=torch.contiguous_format)
+    # .to returns an int32 view as it is (e.g. a per-chain broadcast)
+    return x.to(torch.int32).contiguous()
 
 
 def chunk_lanes_reference(a4, a2, a1, spec) -> ChunkLanes:
-    """Plain PyTorch version: dvda_tpu's front end as eager ops on views
-    of the arenas (casts, permutes, broadcasts, concatenations).  Same
-    arguments and results as :func:`chunk_lanes`; in device-Huffman mode
+    """Plain PyTorch version of the whole front end: dvda_tpu's as eager
+    ops on views of the arenas (casts, permutes, broadcasts,
+    concatenations), the filter inputs included; in device-Huffman mode
     each launch's ``res_tl`` is a fresh tensor for K5 to fill."""
     lay = chunk_layout(spec)
     arenas = {4: a4, 2: a2, 1: a1}
@@ -266,23 +266,23 @@ def chunk_lanes_reference(a4, a2, a1, spec) -> ChunkLanes:
                        pack(iir_reset).contiguous(), _i32(pack(iir_init)),
                        torch.full((lanes, NB0), S0, dtype=torch.int32,
                                   device=dev)))
-    filters = []
+    filters, residuals = [], []
     for NB0, S0, lanes, members in lay.groups:
-        parts = [packed[i] for i in members]
         if lay.huffman:
-            res_tl = torch.empty((NB0, S0, lanes), dtype=torch.int32,
-                                 device=dev)
+            residuals.append(torch.empty((NB0, S0, lanes), dtype=torch.int32,
+                                         device=dev))
         else:  # time-leading residuals: lanes concatenate on axis 2
-            res_tl = torch.cat([p[0] for p in parts], dim=2)
+            residuals.append(torch.cat([packed[i][0] for i in members], 2))
         state0 = torch.zeros((lanes, 8), dtype=torch.int32, device=dev)
-        filters.append((res_tl, *(torch.cat([p[j] for p in parts])
-                                  for j in range(1, 8)), state0, state0))
-    return ChunkLanes(filters, huffman, lay.places)
+        filters.append((residuals[-1],
+                        *(torch.cat([packed[i][j] for i in members])
+                          for j in range(1, 8)), state0, state0))
+    return ChunkLanes(filters, huffman, lay.places, residuals)
 
 
-def _launch(a4, a2, a1, lay: _Layout) -> ChunkLanes:
-    from ..kernels.build import kernel_library
-
+def check_arenas(a4, a2, a1, lay: _Layout) -> None:
+    """Raise unless the three arenas are contiguous 1-D int32 / int16 /
+    int8 tensors on one device, each as long as the spec reads."""
     dev = a4.device
     for t, w, dtype, need in ((a4, 4, torch.int32, lay.need[0]),
                               (a2, 2, torch.int16, lay.need[1]),
@@ -294,30 +294,40 @@ def _launch(a4, a2, a1, lay: _Layout) -> ChunkLanes:
         if t.numel() < need:
             raise ValueError(f"arena {w}: {t.numel()} elements, the spec "
                              f"reads {need}")
+
+
+def _launch(a4, a2, a1, lay: _Layout) -> ChunkLanes:
+    from ..kernels.build import kernel_library
+
+    dev = a4.device
+    check_arenas(a4, a2, a1, lay)
     out32 = torch.empty(lay.n32, dtype=torch.int32, device=dev)
-    out8 = torch.empty(lay.n8, dtype=torch.bool, device=dev)
     lib = kernel_library()
     with torch.cuda.device(dev):
         rc = lib.dvda_chunk_lanes(
             lay.desc.ctypes.data, lay.desc.size, a4.data_ptr(),
-            a2.data_ptr(), a1.data_ptr(), out32.data_ptr(), out8.data_ptr(),
+            a2.data_ptr(), a1.data_ptr(), out32.data_ptr(),
             current_stream(dev))
         chunk_lanes.launches += 1
     if rc == -1:
         raise ValueError("chunk_lanes: the kernel refused the descriptor "
                          "(its layout differs from csrc/chunk_lanes.cuh)")
     raise_on_error(rc, "chunk_lanes")
-    return _views(lay, out32, out8)
+    return _views(lay, out32)
 
 
 def chunk_lanes(a4, a2, a1, spec) -> ChunkLanes:
-    """The chunk's filter inputs per launch and, in device-Huffman mode,
-    K5's lane inputs per substream (see the module note), from its arenas
-    and spec.  CUDA arenas go through kernel K10 (one launch)."""
+    """A device-Huffman chunk's K5 lane inputs per substream and, per
+    filter launch, the residual buffer K5 fills (see the module note),
+    from its arenas and spec; ``filters`` is None.  CUDA arenas go
+    through kernel K10 (one launch)."""
     lay = chunk_layout(spec)
+    if not lay.huffman:
+        raise ValueError("chunk_lanes: a standard chunk has no K5 inputs; "
+                         "its filter reads the arenas (chunk_filter)")
     if on_cuda(a4):
         return _launch(a4, a2, a1, lay)
-    return chunk_lanes_reference(a4, a2, a1, spec)
+    return chunk_lanes_reference(a4, a2, a1, spec)._replace(filters=None)
 
 
 #: kernel launches since the last reset (the CPU path never counts)

@@ -13,8 +13,9 @@ a disc's sectors (the inverse of kernel K7), vectorised across sectors,
 :func:`cppm_sector_mix` adds the edge cases of K7's CCI walk, and
 :func:`c2_edge_batch` lays them out at the batch sizes of
 :data:`C2_EDGES`.  :data:`PCM_EDGES` are kernel K8's chunk counts.
-:func:`chunk_lanes_inputs` builds chunk arenas and their spec for kernel
-K10 at :data:`CHUNK_LANES_EDGES`.
+:func:`chunk_lanes_inputs` builds chunk arenas and their spec for kernels
+K10 and K1a at :data:`CHUNK_LANES_EDGES`, and
+:func:`chunk_filter_staging_inputs` the edges of K1a's residual staging.
 :func:`host_track_bytes` is the port's C++ host path, the witness the
 device path is held against.
 """
@@ -41,7 +42,8 @@ __all__ = ["MlpSynthConfig", "synth_mlp_stream", "MlpTrackSpec",
            "frame_remix_edge_args",
            "encrypt_sectors_batch",
            "cppm_sector_mix", "C2_EDGES", "c2_edge_batch", "PCM_EDGES",
-           "CHUNK_LANES_EDGES", "chunk_lanes_inputs", "host_track_bytes"]
+           "CHUNK_LANES_EDGES", "chunk_lanes_inputs",
+           "chunk_filter_staging_inputs", "host_track_bytes"]
 
 
 def filter_inputs(seed: int, B: int, NB: int, S: int, extreme: bool = False,
@@ -231,20 +233,25 @@ def huffman_edge_inputs(edge: tuple) -> dict:
     return case
 
 
-#: K10 edge cases (name, per substream (n_ch, NB0, S0), Bc, per-chain
+#: Chunk edge cases (name, per substream (n_ch, NB0, S0), Bc, per-chain
 #: parameters, device-Huffman tables, residual width, zero trailing
 #: chains) for :func:`chunk_lanes_inputs`: two substreams fused on the
 #: lane axis with per-chain and with per-block parameters, two of
 #: different (NB0, S0) (two filter launches), a partial chunk (zero
 #: trailing chains), int32 residuals, one lane of one sample, and the
-#: device-Huffman tables fused, per block and unfused; chain counts and
-#: S0 off the kernel's 32 x 32 residual tiles
+#: device-Huffman tables fused, per block and unfused.  K1a (the filter
+#: reading the arenas) runs at every case: its 32-lane blocks straddle
+#: the substreams' and channels' lane boundaries, its 32-row tiles the
+#: blocks (S0 of 1, 9, 10, 17, 20, 24, 33 and 40), and its residual
+#: arenas are int8, int16 and int32; K10 (K5's inputs) at the
+#: device-Huffman ones
 CHUNK_LANES_EDGES = (
     ("fused", ((2, 4, 40), (4, 4, 40)), 40, True, False, 2, 0),
     ("per_block", ((2, 4, 40), (4, 4, 40)), 33, False, False, 2, 0),
     ("unfused", ((2, 4, 10), (4, 2, 20)), 33, True, False, 2, 0),
     ("partial", ((2, 3, 24), (4, 3, 24)), 37, True, False, 2, 5),
     ("int32_res", ((6, 2, 33),), 31, False, False, 4, 0),
+    ("int8_res", ((3, 3, 17), (1, 3, 17)), 35, True, False, 1, 2),
     ("tiny", ((1, 1, 1),), 1, True, False, 2, 0),
     ("huffman", ((2, 4, 40), (4, 4, 40)), 40, True, True, 0, 3),
     ("huffman_per_block", ((2, 4, 40), (4, 4, 40)), 33, False, True, 0, 0),
@@ -252,22 +259,26 @@ CHUNK_LANES_EDGES = (
 )
 
 
-def chunk_lanes_inputs(case: tuple, seed: int = 0):
+def chunk_lanes_inputs(case: tuple, seed: int = 0, filter_domain=False):
     """((a4, a2, a1), spec): numpy chunk arenas for a
     :data:`CHUNK_LANES_EDGES` case, laid out by the port's arena builder
     behind a few arrays of the chunk's frame tables (so that every
     substream array sits at an offset), each substream's arrays at random
     values over their dtype's whole range (sign extension), iir_reset at
-    0, 1, -1 and 5; the trailing chains zero."""
+    0, 1, -1 and 5; the trailing chains zero.  ``filter_domain`` keeps
+    shift in 0-39 and quant in 0-31, where C's shifts (the filter's
+    arithmetic) are defined: shifts of 32-39 take the filter's one-sample
+    step."""
     from ..codecs.mlp.native_engine import _ArenaBuilder
 
     name, geometry, Bc, per_chain, huffman, res_width, zero = case
     rng = np.random.default_rng(seed + CHUNK_LANES_EDGES.index(case))
 
-    def rand(dtype, shape):
+    def rand(dtype, shape, hi=None):
         info = np.iinfo(dtype)
-        x = rng.integers(info.min, info.max, shape, dtype=dtype,
-                         endpoint=True)
+        x = (rng.integers(0, hi, shape, dtype=dtype) if hi else
+             rng.integers(info.min, info.max, shape, dtype=dtype,
+                          endpoint=True))
         x[Bc - zero:] = 0
         return x
 
@@ -290,20 +301,69 @@ def chunk_lanes_inputs(case: tuple, seed: int = 0):
             b.mark(f"s{s}_S", S0)
             b.mark(f"s{s}_J", n_ch + 1)
         else:
-            b.add(f"s{s}_res", rand({2: np.int16, 4: np.int32}[res_width],
+            b.add(f"s{s}_res", rand({1: np.int8, 2: np.int16,
+                                     4: np.int32}[res_width],
                                     (Bc, NB0, n_ch, S0)))
         rows = (Bc, n_ch) if per_chain else (Bc, NB0, n_ch)
         sfx = "_c" if per_chain else ""
-        for pname, inner, dtype in (("rc_fir", (8,), np.int16),
-                                    ("rc_iir", (8,), np.int16),
-                                    ("iir_init", (8,), np.int32),
-                                    ("shift", (), np.int8),
-                                    ("quant", (), np.int8)):
-            b.add(f"s{s}_{pname}{sfx}", rand(dtype, rows + inner))
+        for pname, inner, dtype, hi in (("rc_fir", (8,), np.int16, None),
+                                        ("rc_iir", (8,), np.int16, None),
+                                        ("iir_init", (8,), np.int32, None),
+                                        ("shift", (), np.int8, 40),
+                                        ("quant", (), np.int8, 32)):
+            b.add(f"s{s}_{pname}{sfx}",
+                  rand(dtype, rows + inner, hi if filter_domain else None))
         reset = rng.choice(np.array([0, 1, -1, 5], np.int8), rows)
         reset[Bc - zero:] = 0
         b.add(f"s{s}_iir_reset{sfx}", reset)
     return b.finish()
+
+
+def chunk_filter_staging_inputs(case: tuple, layout: str):
+    """:func:`chunk_lanes_inputs` (``filter_domain``) for kernel K1a's
+    residual staging: ``"res_last"`` moves the last substream's residuals
+    to the end of their arena (a copy appended after a few zeros, the spec
+    pointed at it), so that their last 16-byte granule runs past the
+    arena's end; ``"unaligned"`` puts each arena one element past a
+    16-byte boundary (the staging then loads one row at a time);
+    ``"wide_params"`` moves every parameter array to int32 copies at the
+    end of the int32 arena (K1a's variant for any widths)."""
+    arenas, spec = chunk_lanes_inputs(case, filter_domain=True)
+    arenas = list(arenas)
+    if layout == "wide_params":
+        params = ("rc_fir", "rc_iir", "iir_init", "shift", "quant",
+                  "iir_reset")
+        moved = []
+        for e in spec:
+            if (e[4] != "flag" and e[0][0] == "s"
+                    and e[0].split("_", 1)[1].removesuffix("_c") in params):
+                k = {4: 0, 2: 1, 1: 2}[e[1]]
+                n = int(np.prod(e[3]))
+                x = arenas[k][e[2]:e[2] + n].astype(np.int32)
+                e = (e[0], 4, arenas[0].size, e[3], "int32")
+                arenas[0] = np.concatenate([arenas[0], x])
+            moved.append(e)
+        spec = tuple(moved)
+    elif layout == "res_last":
+        name = max(e[0] for e in spec if e[0].endswith("_res"))
+        entry = next(e for e in spec if e[0] == name)
+        k = {4: 0, 2: 1, 1: 2}[entry[1]]
+        n = int(np.prod(entry[3]))
+        tail = arenas[k][entry[2]:entry[2] + n]
+        pad = next(p for p in range(1, 16)
+                   if (arenas[k].size + p + n) * entry[1] % 16)
+        arenas[k] = np.concatenate([arenas[k], np.zeros(pad, tail.dtype),
+                                    tail])
+        spec = tuple((e[0], e[1], arenas[k].size - n, e[3], e[4])
+                     if e[0] == name else e for e in spec)
+    elif layout == "unaligned":
+        for k, a in enumerate(arenas):
+            buf = np.empty(a.size + 16 // a.itemsize, a.dtype)
+            arenas[k] = buf[1:1 + a.size]
+            arenas[k][:] = a
+    else:
+        raise ValueError(layout)
+    return tuple(arenas), spec
 
 
 def output_stage_inputs(seed: int, chains: int, fpc: int, L0: int,

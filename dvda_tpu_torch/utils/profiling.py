@@ -149,6 +149,7 @@ def kernel_counters() -> dict:
     """Each port kernel's name in a profiler record (its ``__global__``
     function) and the wrapper counters that count its launches."""
     from ..ops.c2_decrypt import decrypt_sectors_device
+    from ..ops.chunk_filter import chunk_filter
     from ..ops.chunk_lanes import chunk_lanes
     from ..ops.general_gather import lane_pack, series_remix
     from ..ops.huffman_decode import decode_residuals_device
@@ -158,6 +159,7 @@ def kernel_counters() -> dict:
 
     return {"chunk_lanes_kernel": ((chunk_lanes, "launches"),),
             "mlp_filter_kernel": ((mlp_filter_blocks_tl, "launches"),),
+            "mlp_filter_arena_kernel": ((chunk_filter, "launches"),),
             # K234 and K234n launch one kernel
             "output_stage_kernel": ((output_stage, "launches"),
                                     (output_stage, "narrow_launches")),

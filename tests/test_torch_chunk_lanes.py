@@ -10,7 +10,7 @@ then runs eagerly (``jax.disable_jit``) with its filter
 which the chunk program imports at call time.  The port's
 ``chunk_lanes_reference`` on the same arenas must give the recorded
 arrays bit for bit (tolerance 0): the fused filter's ten arguments and,
-in device-Huffman mode, K5's lane inputs.  Also: the wrapper on the CPU,
+in device-Huffman mode, K5's lane inputs.  Also: K10's wrapper on the CPU,
 the layout's refusals, K5's output lane offset, and the chunk program on
 int32 residual arenas against dvda_tpu's.
 """
@@ -127,13 +127,20 @@ def test_chunk_lanes_reference_matches_jax(name, huffman, monkeypatch):
                 _same(m, t, f"substream {i} K5 input {j}")
     else:
         assert k5 == [] and got.huffman == [None] * parse.substream_count
-    # the wrapper on the CPU runs the plain version and counts nothing
+    # K10's wrapper on the CPU runs the plain version and counts nothing:
+    # a device-Huffman chunk's K5 inputs; a standard chunk has none
     before = chunk_lanes.launches
-    again = chunk_lanes(*port_ne.arenas_to_device(*arenas, spec, "cpu"),
-                        spec)
+    cpu = port_ne.arenas_to_device(*arenas, spec, "cpu")
+    if huffman:
+        again = chunk_lanes(*cpu, spec)
+        assert again.filters is None and again.places == got.places
+        for mine, theirs in zip(again.huffman, got.huffman, strict=True):
+            for a, b in zip(mine, theirs, strict=True):
+                assert torch.equal(a, b)
+    else:
+        with pytest.raises(ValueError, match="no K5 inputs"):
+            chunk_lanes(*cpu, spec)
     assert chunk_lanes.launches == before
-    for a, b in zip(again.filters[0][1:], got.filters[0][1:]):
-        assert torch.equal(a, b)
     parse.close()
 
 

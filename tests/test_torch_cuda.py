@@ -1,4 +1,4 @@
-"""Kernels K1, K234, K234n, K5, K6a, K6b, K7, K8, K9 and K10 on the card
+"""Kernels K1, K1a, K234, K234n, K5, K6a, K6b, K7, K8, K9 and K10 on the card
 against their plain versions, and the port's decode on the card (both MLP
 modes, the general path, the Python engines, the fused decode step, PCM,
 an encrypted disc) against its CPU decode.  Marked ``cuda``: they
@@ -22,8 +22,11 @@ from dvda_tpu_torch.ops.c2_decrypt import (decrypt_sectors_device,
 from dvda_tpu_torch.ops.pcm_unpack import (decode_chunks_device,
                                            decode_chunks_reference)
 from dvda_tpu_torch.codecs.mlp.native_engine import decode_native
+from dvda_tpu_torch.ops.chunk_filter import (chunk_filter,
+                                             chunk_filter_reference)
 from dvda_tpu_torch.ops.chunk_lanes import (chunk_lanes,
-                                            chunk_lanes_reference)
+                                            chunk_lanes_reference,
+                                            chunk_layout)
 from dvda_tpu_torch.codecs.mlp.track import decode_segment
 from dvda_tpu_torch.ops.huffman_decode import (decode_residuals_device,
                                                decode_residuals_reference)
@@ -42,6 +45,7 @@ from dvda_tpu_torch.parallel.step import (decode_step, example_batch,
                                           make_sharded_step)
 from dvda_tpu_torch.testutil import (BPS_CODE, C2_EDGES,
                                      CHUNK_LANES_EDGES, chunk_lanes_inputs,
+                                     chunk_filter_staging_inputs,
                                      FILTER_EDGES,
                                      FRAME_REMIX_EDGES, frame_remix_edge_args,
                                      HUFFMAN_EDGES, PCM_EDGES, c2_edge_batch,
@@ -408,28 +412,93 @@ def test_huffman_kernel_at_lane_offset(dev, lane0, extra):
 
 @pytest.mark.parametrize("case", CHUNK_LANES_EDGES, ids=lambda c: c[0])
 def test_chunk_lanes_kernel_edge_cases(dev, case):
-    """K10 against its plain version on the card at its edge cases (fused
-    and unfused substreams, per-chain and per-block parameters, a partial
-    chunk, int32 residuals, one lane, device-Huffman inputs), in one
-    launch."""
+    """K10 against the plain front end on the card at its edge cases, in
+    one launch: a device-Huffman chunk's K5 inputs (fused and unfused
+    substreams, per-chain and per-block rows) and its residual buffers'
+    shapes; a standard chunk refused before any launch."""
     arenas, spec = chunk_lanes_inputs(case)
     a = [torch.from_numpy(x).to(dev) for x in arenas]
     before = chunk_lanes.launches
+    if not case[4]:
+        with pytest.raises(ValueError, match="no K5 inputs"):
+            chunk_lanes(*a, spec)
+        assert chunk_lanes.launches == before
+        return
     got = chunk_lanes(*a, spec)
-    assert chunk_lanes.launches == before + 1
+    assert chunk_lanes.launches == before + 1 and got.filters is None
     ref = chunk_lanes_reference(*a, spec)
-    huffman = case[4]
-    for mine, theirs in zip(got.filters, ref.filters, strict=True):
-        for j, (m, t) in enumerate(zip(mine, theirs, strict=True)):
-            if not (huffman and j == 0):
-                assert torch.equal(m, t), j
+    assert [r.shape for r in got.residuals] == [f[0].shape
+                                                for f in ref.filters]
     for mine, theirs in zip(got.huffman, ref.huffman, strict=True):
-        for m, t in zip(mine or (), theirs or (), strict=True):
+        for m, t in zip(mine, theirs, strict=True):
             assert torch.equal(m, t)
 
 
+@pytest.mark.parametrize("case", CHUNK_LANES_EDGES, ids=lambda c: c[0])
+def test_chunk_filter_kernel_edge_cases(dev, case):
+    """K1a against its plain version on the card at K10's edge cases, one
+    launch per filter launch; in device Huffman on random residual
+    buffers standing in for K5's."""
+    arenas, spec = chunk_lanes_inputs(case, filter_domain=True)
+    a = [torch.from_numpy(x).to(dev) for x in arenas]
+    lay = chunk_layout(spec)
+    res = None
+    if lay.huffman:
+        gen = torch.Generator().manual_seed(len(case[0]))
+        res = [torch.randint(-2**31, 2**31 - 1, (NB0, S0, lanes),
+                             generator=gen, dtype=torch.int32).to(dev)
+               for NB0, S0, lanes, _ in lay.groups]
+    before = chunk_filter.launches
+    got = chunk_filter(*a, spec, res)
+    assert chunk_filter.launches == before + len(lay.groups)
+    ref = chunk_filter_reference(*a, spec, res)
+    for m, t in zip(got, ref, strict=True):
+        assert torch.equal(m, t)
+
+
+@pytest.mark.parametrize("case,layout", [
+    (c, layout) for c in CHUNK_LANES_EDGES
+    for layout in ("res_last", "unaligned", "wide_params")
+    if layout == "wide_params" or (not c[4] and c[1][0][2] >= 16)],
+    ids=lambda x: x if isinstance(x, str) else x[0])
+def test_chunk_filter_kernel_staging(dev, case, layout):
+    """K1a's residual staging and variants on the card at their edges:
+    the residuals at the end of their arena (the last 16-byte cp.async
+    cut to the arena), arenas off 16 bytes (one load a row), parameter
+    arrays at other widths (the variant for any widths)."""
+    arenas, spec = chunk_filter_staging_inputs(case, layout)
+    a = []
+    for x in arenas:
+        t = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+        if layout == "unaligned":  # the same elements, one past 16 bytes
+            t = torch.cat([t[:1], t])[1:]
+            assert t.data_ptr() % 16
+        a.append(t)
+    res = None
+    if case[4]:
+        gen = torch.Generator().manual_seed(7)
+        res = [torch.randint(-2**31, 2**31 - 1, g[:3], generator=gen,
+                             dtype=torch.int32).to(dev)
+               for g in chunk_layout(spec).groups]
+    got = chunk_filter(*a, spec, res)
+    for m, t in zip(got, chunk_filter_reference(*a, spec, res), strict=True):
+        assert torch.equal(m, t)
+
+
+def test_chunk_filter_rejects_bad_inputs(dev):
+    arenas, spec = chunk_lanes_inputs(CHUNK_LANES_EDGES[-1])
+    a = [torch.from_numpy(x).to(dev) for x in arenas]
+    res = chunk_lanes(*a, spec).residuals
+    with pytest.raises(ValueError, match="arena 4"):
+        chunk_filter(a[0][:3], a[1], a[2], spec, res)
+    with pytest.raises(ValueError, match="residuals 1"):
+        chunk_filter(*a, spec, [res[0], res[1][:, :1]])
+    with pytest.raises(ValueError, match="needs 2 residual"):
+        chunk_filter(*a, spec)
+
+
 def test_chunk_lanes_rejects_bad_arenas(dev):
-    arenas, spec = chunk_lanes_inputs(CHUNK_LANES_EDGES[0])
+    arenas, spec = chunk_lanes_inputs(CHUNK_LANES_EDGES[-1])
     a = [torch.from_numpy(x).to(dev) for x in arenas]
     with pytest.raises(TypeError, match="arena 2"):
         chunk_lanes(a[0], a[2], a[2], spec)
@@ -439,24 +508,27 @@ def test_chunk_lanes_rejects_bad_arenas(dev):
 
 @pytest.mark.parametrize("huffman", [False, True])
 def test_chunk_program_launches_port_kernels(dev, huffman):
-    """A uniform decode on the card launches K10 once a chunk, then K5 per
-    substream (device Huffman), K1 once a chunk (the substreams fused)
-    and K234n; bytes equal to the CPU's."""
+    """A uniform decode on the card launches K1a once a chunk (the
+    substreams fused) and, in device Huffman, K10 (its K5 inputs) and K5
+    per substream before it; never K1; bytes equal to the CPU's."""
     cfg = MlpSynthConfig(channel_assignment=17, substream_count=2,
                          sample_rate=96000, n_frames=48, seed=2,
                          fir_across_restart=False, params_update_prob=0.0)
     stream = synth_mlp_stream(cfg)
     params = StreamParameters(BPS_CODE[24], 0xF, RATE_CODE[96000], 0xF, 17)
     bnd = np.zeros(0, np.int64)
-    counters = (chunk_lanes, mlp_filter_blocks_tl, decode_residuals_device)
+    counters = (chunk_lanes, chunk_filter, mlp_filter_blocks_tl,
+                decode_residuals_device)
     before = [fn.launches for fn in counters]
     info = {}
     got = decode_native(stream, bnd, len(stream), params, True,
                         DecodeConfig(device="cuda", device_huffman=huffman,
                                      chunk_chains=2), info=info)
-    k10, k1, k5 = (fn.launches - b for fn, b in zip(counters, before))
+    k10, k1a, k1, k5 = (fn.launches - b for fn, b in zip(counters, before))
     assert info["path"] in ("pipelined", "uniform")
-    assert k10 > 0 and k1 == k10 and k5 == (2 * k10 if huffman else 0)
+    assert k1a > 0 and k1 == 0
+    assert k10 == (k1a if huffman else 0)
+    assert k5 == (2 * k1a if huffman else 0)
     ref = decode_native(stream, bnd, len(stream), params, True,
                         DecodeConfig(device="cpu", device_huffman=huffman,
                                      chunk_chains=2))
@@ -657,13 +729,14 @@ def test_segmented_decode_on_card(dev, tmp_path):
     whole = reader().read_all_packed()
     samples = reader().read_all()
     per = cfg.frames_per_mlp_frame
-    before = (mlp_filter_blocks_tl.launches, output_stage.narrow_launches,
+    before = (chunk_filter.launches, output_stage.narrow_launches,
               decode_segment.spec_fallbacks)
     chunks = list(reader().iter_packed(16 * per))
     assert len(chunks) == 6 and b"".join(chunks) == whole
-    # every segment decoded on the card, none on the host's spec decoder
+    # every segment decoded on the card (its uniform chunks by K1a), none
+    # on the host's spec decoder
     assert decode_segment.spec_fallbacks == before[2]
-    assert mlp_filter_blocks_tl.launches >= before[0] + 6
+    assert chunk_filter.launches >= before[0] + 6
     assert output_stage.narrow_launches >= before[1] + 6
     r = reader()
     assert r.manifest.total_frames == cfg.n_frames
@@ -755,14 +828,14 @@ def test_c_api_on_card(dev, tmp_path, monkeypatch):
         dt.dvda_open(layout.path), 1), 1)
     reader = dt.dvda_open_track_reader(dt.dvda_open_track(title, 2))
     assert dt.dvda_codec(reader) == dt.DVDA_MLP
-    before = (mlp_filter_blocks_tl.launches, output_stage.narrow_launches)
+    before = (chunk_filter.launches, output_stage.narrow_launches)
     got = []
     while True:
         block = dt.dvda_read(reader, 1000)
         if block.shape[0] == 0:
             break
         got.append(block)
-    assert mlp_filter_blocks_tl.launches > before[0]
+    assert chunk_filter.launches > before[0]
     assert output_stage.narrow_launches > before[1]
     assert len(got) == -(-want.shape[0] // 1000)
     assert np.array_equal(np.concatenate(got), want)

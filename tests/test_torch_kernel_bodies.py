@@ -24,6 +24,7 @@ from dvda_tpu.container.aob import AOBReader
 from dvda_tpu.cppm.c2 import SBOX, SBOX_F
 from dvda_tpu.cppm.decrypt import CppmDecryptor
 from dvda_tpu_torch.ops.c2_decrypt import decrypt_sectors_reference
+from dvda_tpu_torch.ops.chunk_filter import chunk_filter_reference
 from dvda_tpu_torch.ops.chunk_lanes import (_views, chunk_lanes_reference,
                                             chunk_layout)
 from dvda_tpu_torch.ops.general_gather import (general_pipeline_reference,
@@ -42,6 +43,7 @@ from dvda_tpu_torch.testutil import (C2_EDGES, CHUNK_LANES_EDGES,
                                      NARROW_RANGES, OUTPUT_STAGE_EDGES,
                                      PCM_EDGES, SERIES_REMIX_EDGES,
                                      c2_edge_batch, chunk_lanes_inputs,
+                                     chunk_filter_staging_inputs,
                                      MlpSynthConfig, MlpTrackSpec,
                                      PcmTrackSpec, build_disc,
                                      cppm_sector_mix, filter_inputs,
@@ -80,7 +82,10 @@ def harness(tmp_path_factory):
     lib.cpu_huffman_decode.argtypes = ([p, i64, i64] + [p] * 11 + [i] * 7
                                        + [i64, i64, i, i, p])
     lib.cpu_chunk_lanes.restype = i
-    lib.cpu_chunk_lanes.argtypes = [p, i64] + [p] * 5
+    lib.cpu_chunk_lanes.argtypes = [p, i64] + [p] * 4
+    lib.cpu_chunk_filter.restype = i
+    lib.cpu_chunk_filter.argtypes = ([p, i64] + [p] * 3 + [i64] * 3
+                                     + [p] * 2 + [i] * 3)
     lib.cpu_pcm_unpack.restype = None
     lib.cpu_pcm_unpack.argtypes = [p, i64, i, i, i, i, p, p]
     lib.cpu_c2_decrypt.restype = None
@@ -683,41 +688,123 @@ def test_lfsr_jump_matches_steps(harness, L0):
 
 def _chunk_lanes_body(harness, arenas, spec):
     """K10's body over its grid (ops/chunk_lanes.py's descriptor and
-    output buffers, poisoned), as the views the wrapper returns."""
+    output buffer, poisoned), as the views the wrapper returns; None
+    where the entry refuses the descriptor (a standard chunk's)."""
     lay = chunk_layout(spec)
-    out32 = np.full(lay.n32, 0x55555555, np.int32)
-    out8 = np.full(lay.n8, 2, np.uint8)
+    out32 = np.full(max(lay.n32, 1), 0x55555555, np.int32)
     a4, a2, a1 = (np.ascontiguousarray(a) for a in arenas)
-    rc = harness.cpu_chunk_lanes(_ptr(lay.desc), lay.desc.size, _ptr(a4),
-                                 _ptr(a2), _ptr(a1), _ptr(out32), _ptr(out8))
+
+    def run(n_words=lay.desc.size):
+        return harness.cpu_chunk_lanes(_ptr(lay.desc), n_words, _ptr(a4),
+                                       _ptr(a2), _ptr(a1), _ptr(out32))
+
+    assert run(lay.desc.size - 1) == -1
+    rc = run()
+    if not lay.huffman:
+        assert rc == -1
+        return lay, None
     assert rc == 0
-    assert harness.cpu_chunk_lanes(_ptr(lay.desc), lay.desc.size - 1,
-                                   _ptr(a4), _ptr(a2), _ptr(a1), _ptr(out32),
-                                   _ptr(out8)) == -1
-    return lay, _views(lay, torch.from_numpy(out32), torch.from_numpy(out8))
+    return lay, _views(lay, torch.from_numpy(out32))
 
 
 @pytest.mark.parametrize("case", CHUNK_LANES_EDGES, ids=lambda c: c[0])
 def test_chunk_lanes_body_edge_cases(harness, case):
-    """K10's body (residual tiles through a 32 x 33 tile, then one output
-    element a thread) against its plain version: per-chain and per-block
-    parameters, fused and unfused substreams, a partial chunk, int32
-    residuals, one lane, device-Huffman inputs.  Every output element is
-    written (the buffers start poisoned); in device-Huffman mode the
-    residuals are K5's to write."""
+    """K10's body against the plain front end at every edge case: in
+    device Huffman K5's lane inputs (per-chain and per-block rows, fused
+    and unfused substreams) with every element written and the residual
+    buffers left to K5 (still poisoned); a standard chunk's descriptor
+    refused (its filter, K1a, reads the arenas)."""
     arenas, spec = chunk_lanes_inputs(case)
     lay, got = _chunk_lanes_body(harness, arenas, spec)
+    if not case[4]:
+        assert got is None
+        return
     ref = chunk_lanes_reference(*map(torch.from_numpy, arenas), spec)
-    assert got.places == ref.places
-    for g, (mine, theirs) in enumerate(zip(got.filters, ref.filters,
-                                           strict=True)):
-        for j, (m, t) in enumerate(zip(mine, theirs, strict=True)):
-            if lay.huffman and j == 0:
-                continue
-            if t.dtype == torch.bool:
-                m, t = m.view(torch.uint8), t.to(torch.uint8)
-            assert m.shape == t.shape and torch.equal(m, t), (g, j)
+    assert got.filters is None and got.places == ref.places
     for mine, theirs in zip(got.huffman, ref.huffman, strict=True):
-        assert (mine is None) == (theirs is None) == (not lay.huffman)
-        for m, t in zip(mine or (), theirs or (), strict=True):
-            assert torch.equal(m, t)
+        for m, t in zip(mine, theirs, strict=True):
+            assert m.shape == t.shape and torch.equal(m, t)
+    for r, f in zip(got.residuals, ref.filters, strict=True):
+        assert r.shape == f[0].shape and (r == 0x55555555).all()
+
+
+def _chunk_filter_body(harness, arenas, spec, residuals=None):
+    """K1a's body per filter launch (ops/chunk_lanes.py's group
+    descriptors; outputs poisoned), and the entry's refusals."""
+    lay = chunk_layout(spec)
+    a4, a2, a1 = arenas
+    outs = []
+    for g, (desc, (NB0, S0, lanes, _)) in enumerate(zip(lay.group_descs,
+                                                        lay.groups)):
+        out = np.full((NB0, S0, lanes), 0x55555555, np.int32)
+        res = None if residuals is None else _ptr(residuals[g])
+
+        def run(n_words=desc.size, B=lanes, S=S0, res=res):
+            return harness.cpu_chunk_filter(
+                _ptr(desc), n_words, _ptr(a4), _ptr(a2), _ptr(a1), a4.size,
+                a2.size, a1.size, res, _ptr(out), B, NB0, S)
+
+        assert run(n_words=desc.size - 1) == -1
+        assert run(B=lanes + 1) == -1 and run(S=S0 + 1) == -1
+        if residuals is not None:  # K5's residuals: not in the arenas
+            assert run(res=None) == -1
+        assert run() == 0
+        outs.append(out)
+    return lay, outs
+
+
+@pytest.mark.parametrize("case", CHUNK_LANES_EDGES, ids=lambda c: c[0])
+def test_chunk_filter_body_edge_cases(harness, case):
+    """K1a's body (each thread's lane resolved in the group's descriptor,
+    its residual rows read from the arenas at their width tile by tile,
+    K1's sample loop through the arena policy) against its plain version
+    (K10's, then K1's): per-chain and per-block rows, fused and unfused
+    substreams, 32-lane blocks across channel and substream boundaries,
+    a partial chunk, int8/int16/int32 residual arenas, one lane; in
+    device Huffman on given residual buffers (K5's, here random)."""
+    arenas, spec = chunk_lanes_inputs(case, filter_domain=True)
+    lay = chunk_layout(spec)
+    residuals = None
+    if lay.huffman:
+        rng = np.random.default_rng(CHUNK_LANES_EDGES.index(case))
+        residuals = [rng.integers(-2**31, 2**31, (NB0, S0, lanes),
+                                  dtype=np.int64).astype(np.int32)
+                     for NB0, S0, lanes, _ in lay.groups]
+    _, got = _chunk_filter_body(harness, arenas, spec, residuals)
+    ref = chunk_filter_reference(
+        *map(torch.from_numpy, arenas), spec,
+        None if residuals is None else list(map(torch.from_numpy,
+                                                residuals)))
+    for g, (m, t) in enumerate(zip(got, ref, strict=True)):
+        assert m.shape == tuple(t.shape) and np.array_equal(m, t.numpy()), g
+
+
+
+STAGING = [(c, layout) for c in CHUNK_LANES_EDGES
+           for layout in ("res_last", "unaligned", "wide_params")
+           if layout == "wide_params" or (not c[4] and c[1][0][2] >= 16)]
+
+
+@pytest.mark.parametrize("case,layout", STAGING,
+                         ids=lambda x: x if isinstance(x, str) else x[0])
+def test_chunk_filter_body_staging(harness, case, layout):
+    """K1a's residual staging and variants at their edges: the residuals
+    at the very end of their arena (the last granule copied in part),
+    arenas off 16 bytes (one load a row instead of granules), and
+    parameter arrays at other widths than the arena builders' (the
+    variant for any widths, also in device Huffman)."""
+    arenas, spec = chunk_filter_staging_inputs(case, layout)
+    if layout == "unaligned":
+        assert all(a.ctypes.data % 16 for a in arenas)
+    residuals = None
+    if case[4]:
+        rng = np.random.default_rng(7)
+        residuals = [rng.integers(-2**31, 2**31, g[:3], dtype=np.int64)
+                     .astype(np.int32) for g in chunk_layout(spec).groups]
+    _, got = _chunk_filter_body(harness, arenas, spec, residuals)
+    ref = chunk_filter_reference(
+        *(torch.from_numpy(np.ascontiguousarray(a)) for a in arenas), spec,
+        None if residuals is None else list(map(torch.from_numpy,
+                                                residuals)))
+    for g, (m, t) in enumerate(zip(got, ref, strict=True)):
+        assert np.array_equal(m, t.numpy()), g

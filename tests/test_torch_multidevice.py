@@ -247,8 +247,9 @@ def test_env_knobs(env, field, raw, want, monkeypatch):
                                   "narrow_redo"])
 def test_round_robin_cuda(name, monkeypatch):
     """``[cuda:0, cuda:0]``: the per-device drain bookkeeping on one card,
-    with and without the side stream; bytes equal host-complete."""
-    from dvda_tpu_torch.ops.mlp_filter import mlp_filter_blocks_tl
+    with and without the side stream; each chunk through K1a; bytes
+    equal host-complete."""
+    from dvda_tpu_torch.ops.chunk_filter import chunk_filter
 
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -259,9 +260,9 @@ def test_round_robin_cuda(name, monkeypatch):
     hc = port_ne.decode_host_complete(stream, np.zeros(0, np.int64),
                                       len(stream), params, True)
     for side in (True, False):
-        before = mlp_filter_blocks_tl.launches
+        before = chunk_filter.launches
         cfg = replace(DecodeConfig(**STREAMS[name][1]), drain_thread=side)
         got = port_ne.decode_native(stream, np.zeros(0, np.int64),
                                     len(stream), params, True, cfg)
-        assert mlp_filter_blocks_tl.launches > before
+        assert chunk_filter.launches > before
         assert bytes(got) == bytes(hc)

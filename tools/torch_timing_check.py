@@ -82,15 +82,24 @@ smoke's 5 s engine disc (synthesised and decoded with
 
     python3 tools/torch_timing_check.py k10 PARENT
 
-times K10 (the chunk program's arena front end) alone at the smoke's
-headline chunk (its first 256 chains, standard mode, arenas on the card;
-the stream synthesised to those chains' 2,056 frames), then the whole
-chunk program (``uniform_arena_pipeline``: K10, K1 and K234n, and K5 in
-device Huffman) of this checkout against the chunk program of the
-checkout at PARENT, in both modes, on the same arenas, in the order
-parent, change, change, parent (queued card time, 10 calls a figure).
-PARENT's package is imported under another name and builds its kernels
-into its own ``build/``.  The two programs' outputs must be equal.
+times K10 (a device-Huffman chunk's K5 inputs) alone at the smoke's
+headline chunk (its first 256 chains, arenas on the card; the stream
+synthesised to those chains' 2,056 frames), then the whole chunk
+program (``uniform_arena_pipeline``) of this checkout against the chunk
+program of the checkout at PARENT, in both modes, on the same arenas,
+in the order parent, change, change, parent (queued card time, and per
+call back to back by CUDA events, 10 calls a figure).  PARENT's package
+is imported under another name and builds its kernels into its own
+``build/``.  The two programs' outputs must be equal.
+
+    python3 tools/torch_timing_check.py k1a PARENT
+
+does the same with K1a alone first (the filter reading the chunk
+arenas: at the standard headline chunk, and in device Huffman on the
+residuals that K10 and K5 write, K10 timed alone too), then the chunk
+program here (standard: K1a and K234n; device Huffman: K10, 2 x K5,
+K1a, K234n) against PARENT's, both modes, parent, change, change,
+parent.
 """
 
 from __future__ import annotations
@@ -839,14 +848,64 @@ def _parent_engine(parent: str):
         "parent_dvda_tpu_torch.codecs.mlp.native_engine")
 
 
-def _k10_against(smoke, parent: str) -> int:
-    """K10 alone, then the chunk program here against the chunk program
-    at ``parent`` (see the module note)."""
+def _k10_alone(smoke, arenas, spec, words, huffman: bool) -> None:
+    """K10 alone at the device-Huffman headline chunk (a standard chunk
+    does not launch it)."""
+    from dvda_tpu_torch.ops.chunk_lanes import (chunk_lanes,
+                                                chunk_lanes_reference)
+
+    if not huffman:
+        return
+    ms, ev = smoke._times(lambda: chunk_lanes(*arenas, spec), 50)
+    plain = smoke.events_ms(lambda: chunk_lanes_reference(*arenas, spec), 5)
+    print(f"K10 chunk_lanes, headline chunk (device Huffman): {ms:.4f} ms "
+          f"on the card ({ev:.4f} ms per call back to back), plain "
+          f"{plain:.3f} ms", flush=True)
+
+
+def _k1a_alone(smoke, arenas, spec, words, huffman: bool) -> None:
+    """K1a alone at the headline chunk; in device Huffman K10 alone, then
+    K1a on the residuals K5 writes."""
+    from dvda_tpu_torch.codecs.mlp import native_engine as ne
+    from dvda_tpu_torch.ops.chunk_filter import (chunk_filter,
+                                                 chunk_filter_reference)
+    from dvda_tpu_torch.ops.chunk_lanes import (chunk_lanes,
+                                                chunk_lanes_reference)
+    from dvda_tpu_torch.ops.huffman_decode import decode_residuals_device
+    from dvda_tpu_torch.ops.mlp_filter import mlp_filter_blocks_tl
+
+    mode = "device Huffman" if huffman else "standard"
+    res = None
+    if huffman:
+        _k10_alone(smoke, arenas, spec, words, huffman)
+        lanes = chunk_lanes(*arenas, spec)
+        arrs, flags = ne.unpack_spec(*arenas, spec)
+        for i, (g, lane0) in enumerate(lanes.places):
+            args, kw = ne.huffman_inputs(lanes, arrs, flags, i, words)
+            decode_residuals_device(*args, **kw, out=lanes.residuals[g],
+                                    lane0=lane0)
+        res = lanes.residuals
+    ms, ev = smoke._times(lambda: chunk_filter(*arenas, spec, res), 50)
+    plain = smoke.events_ms(
+        lambda: chunk_filter_reference(*arenas, spec, res), 2)
+    # K1 on the same chunk: the plain front end's filter inputs (K5's
+    # residuals in device Huffman)
+    args = chunk_lanes_reference(*arenas, spec).filters[0]
+    args = (res[0] if huffman else args[0],) + tuple(args[1:])
+    k1, _ = smoke._times(lambda: mlp_filter_blocks_tl(*args), 50)
+    print(f"K1a mlp_filter_arena, headline chunk ({mode}): {ms:.4f} ms on "
+          f"the card ({ev:.4f} ms per call back to back), plain "
+          f"{plain:.2f} ms; K1 on the front end's inputs of the same chunk "
+          f"{k1:.4f} ms", flush=True)
+
+
+def _chunk_program_against(smoke, parent: str, alone) -> int:
+    """``alone`` at the headline chunk, then the chunk program here
+    against the chunk program at ``parent``, both modes (see the module
+    note)."""
     import torch
 
     from dvda_tpu_torch.codecs.mlp import native_engine as ne
-    from dvda_tpu_torch.ops.chunk_lanes import (chunk_lanes,
-                                                chunk_lanes_reference)
     from dvda_tpu_torch.testutil import MlpSynthConfig, synth_mlp_stream
 
     dev = torch.device("cuda", 0)
@@ -857,13 +916,7 @@ def _k10_against(smoke, parent: str) -> int:
     for huffman in (False, True):
         mode = "device Huffman" if huffman else "standard"
         arenas, spec, words = smoke._headline_chunk(stream, dev, huffman)
-        if not huffman:
-            ms, ev = smoke._times(lambda: chunk_lanes(*arenas, spec), 50)
-            plain = smoke.events_ms(
-                lambda: chunk_lanes_reference(*arenas, spec), 5)
-            print(f"K10 chunk_lanes, headline chunk ({mode}): {ms:.4f} ms "
-                  f"on the card ({ev:.4f} ms per call back to back), plain "
-                  f"{plain:.3f} ms", flush=True)
+        alone(smoke, arenas, spec, words, huffman)
         calls = {"parent": lambda: parent_ne.uniform_arena_pipeline(
                      *arenas, spec, words),
                  "change": lambda: ne.uniform_arena_pipeline(
@@ -874,13 +927,26 @@ def _k10_against(smoke, parent: str) -> int:
             print(f"chunk program ({mode}): the parent's and the change's "
                   "outputs differ", flush=True)
             return 1
-        ms = _alternate(smoke, calls, ("parent", "change", "change",
-                                       "parent"), reps=10)
+        ms = {k: [] for k in calls}
+        for k in ("parent", "change", "change", "parent"):
+            ms[k].append(smoke._times(calls[k], 10))
+        card = {k: " / ".join(f"{c:.4f}" for c, _ in v)
+                for k, v in ms.items()}
+        ev = {k: " / ".join(f"{e:.4f}" for _, e in v) for k, v in ms.items()}
         print(f"chunk program, headline chunk ({mode}): parent "
-              f"{ms['parent'][0]:.4f} / {ms['parent'][1]:.4f} ms, change "
-              f"{ms['change'][0]:.4f} / {ms['change'][1]:.4f} ms on the card "
-              "(parent, change, change, parent); outputs equal", flush=True)
+              f"{card['parent']} ms, change {card['change']} ms on the card; "
+              f"per call back to back parent {ev['parent']} ms, change "
+              f"{ev['change']} ms (parent, change, change, parent); outputs "
+              "equal", flush=True)
     return 0
+
+
+def _k10_against(smoke, parent: str) -> int:
+    return _chunk_program_against(smoke, parent, _k10_alone)
+
+
+def _k1a_against(smoke, parent: str) -> int:
+    return _chunk_program_against(smoke, parent, _k1a_alone)
 
 
 def main() -> int:
@@ -898,7 +964,8 @@ def main() -> int:
         return _chains(smoke)
     against = {"k1": _k1_against, "k7": _k7_against, "k8": _k8_against,
                "k234n": _k234n_against, "k6b": _k6b_against,
-               "k9": _k9_against, "k10": _k10_against}
+               "k9": _k9_against, "k10": _k10_against,
+               "k1a": _k1a_against}
     if sys.argv[1:2] and sys.argv[1] in against and len(sys.argv) == 3:
         smoke.phase_device()
         return against[sys.argv[1]](smoke, sys.argv[2])
