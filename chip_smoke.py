@@ -14,7 +14,10 @@ Phases, each printing a line; any failure propagates (non-zero exit):
    of PCM 2.0/48k/16 — with a plaintext copy;
 4. kernels: each kernel against its plain PyTorch version on the card,
    bit-exact (tolerance 0: the decode is integer arithmetic), at the shapes
-   the main paths give it (K1, K234 and K5 also at the edge shapes of
+   the main paths give it (K1 also on lane-leading residuals, writing
+   lane-leading output and the step's frame-major channels, at
+   ``FILTER_EDGES``, and each layout timed at the step batch beside the
+   time-leading one; K1, K234 and K5 also at the edge shapes of
    ``testutil.FILTER_EDGES``, ``OUTPUT_STAGE_EDGES`` and
    ``HUFFMAN_EDGES``, K7 at ``C2_EDGES``, K8 at ``PCM_EDGES``, K9 at
    ``FRAME_REMIX_EDGES``, K10, a device-Huffman chunk's K5 inputs, and
@@ -60,7 +63,12 @@ Phases, each printing a line; any failure propagates (non-zero exit):
    card records must be the port's kernels only (K1a, K234n; K10 and
    K5 in device Huffman), no other kernel, copy or fill; then one whole
    standard decode's records and idle share, printed;
-5b. modes: the headline's first and last (partial) chunk built by
+5b. unfused: a hand-built headline-sized chunk whose two substreams
+   differ in block geometry (``testutil.unfused_chunk_inputs``) through
+   ``uniform_arena_pipeline`` on the card: two K1a launches, each writing
+   its lanes at their columns of the one series K234 reads, equal to the
+   plain chunk program; under the profiler 2 x K1a + K234 records only;
+5c. modes: the headline's first and last (partial) chunk built by
    ``mp_pack`` and by the numpy arena builder, pinned, in both modes:
    byte-equal arenas, equal specs; then the disc through
    ``read_all_packed()`` with ``native_pack=False`` (both modes), with the
@@ -97,13 +105,18 @@ Phases, each printing a line; any failure propagates (non-zero exit):
    ``example_batch(F=256, C=8, NB=16, S=40)`` on the card (one K1 and one
    K9 launch), bit-exact against the same step built from the plain
    versions on the card; ``make_sharded_step`` over ``make_mesh()`` (every
-   visible card) equal to it; the step's CUDA-event time and K1's card
-   time at the step's lanes;
+   visible card) equal to it; one step under the profiler, whose card
+   records must be one K1 and one K9 (no copy, fill or other kernel),
+   equal to the counters; the step's CUDA-event and card time, and K1's
+   card time at the step's lanes, time-leading and frame-major (the
+   step's own);
 9. Python engine: a 5-second 5.1/96k/24 disc (6,000 frames: the pure-Python
    planner costs seconds of host time per second of audio) through
    ``open_disc(...).read_all_packed()`` with ``use_native=False``: the
    batched engine path, K1 and K9 launched, bytes equal to host-complete;
-   K9 against its plain version at the engine's own inputs; walls and the
+   K9 against its plain version at the engine's own inputs; the engine's
+   filter call on its own inputs under the profiler: host-to-device
+   copies of its eight lane arrays and one K1, nothing else; walls and the
    planner / filter / frames stages;
 10. bail: a 1-second 5.1/96k/24 disc without check data whose frame 8 is
    damaged: the native parser bails (logged), the planner bails too, and
@@ -124,7 +137,15 @@ Phases, each printing a line; any failure propagates (non-zero exit):
    x realtime (each equal to the host path, which the bench checks), the
    headline's ``device_idle_share`` or the reason it is null, and
    ``multi_device_scaling`` measured at one card (its children on more
-   cards where there are more).
+   cards where there are more); per config, the MLP chunks a run and
+   those whose K1a launches joined into one series (more than one).
+
+The gated captures of 5b, 8 and 9 each run in a child process of their
+own (``chip_smoke.py --records step|unfused|engine``): this card's
+profiler loses the records of short captures once a process has gone
+30 s without one, and once lost one of two K1a records in every capture
+of a fresh child; a child whose captures lost records of the port's
+kernels, and held nothing else, is run again (at most three children).
 
 Every kernel's record carries its bound: the larger of the bytes it must
 move (each input byte it needs read once, each output written once) over
@@ -137,9 +158,9 @@ that computes the same function where there is one (K8's packed form:
 ``index_select`` by the gather table; K6a's residual gather:
 ``torch.take``), timed here only.  K1a's ``launches`` sums its launches
 over every uniform MLP path's run (standard and device Huffman, each
-with narrow on and off, ``iter_packed`` at 5 s segments, the modes of
-5b, the CPPM track), K1's over the paths that still run it (churn,
-step, engine); K10's the two device-Huffman headline decodes of
+with narrow on and off, ``iter_packed`` at 5 s segments, the unfused
+chunk, the modes of 5c, the CPPM track), K1's over the paths that still
+run it (churn, step, engine); K10's the two device-Huffman headline decodes of
 phase 5.  The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.
 """
@@ -187,6 +208,10 @@ STEP = dict(F=256, C=8, NB=16, S=40, C_out=6, seed=0)
 ENGINE_FRAMES, BAIL_FRAMES = 6000, 1200
 #: the device of the step, engine and bail phases
 DEV = "cuda"
+#: the smoke's discs and files, removed at its end; the engine's filter
+#: inputs, saved for the ``--records engine`` child
+WORK = os.path.join(ROOT, "build", "chip_smoke")
+ENGINE_FILTER = os.path.join(WORK, "engine_filter.npz")
 #: the general-path disc: 12 sections of 2.5 s, alternating the geometry
 GENERAL = dict(channel_assignment=17, substream_count=2, bits_per_sample=24,
                sample_rate=96000, n_frames=3000, major_sync_every=8,
@@ -204,7 +229,7 @@ PCM_TRACKS = (dict(pcm_frames=2_880_000, sample_rate=96000,
 MEDIA_KEY, ALBUM = 0x00DEADBEEF001122, 0x0F0E0D0C0B0A0908
 #: K1 launches of each main path's run (the filter of the general path,
 #: the fused step and the Python engine), and K1a's (the filter of every
-#: uniform chunk: the headline decodes, iter_packed, the modes of 5b, the
+#: uniform chunk: the headline decodes, iter_packed, the modes of 5c, the
 #: CPPM disc's MLP track)
 K1_PATHS: dict[str, int] = {}
 K1A_PATHS: dict[str, int] = {}
@@ -471,7 +496,7 @@ def _kernel_k1a(stream, dev):
         got = chunk_filter(*arenas, spec, res)
         ref = chunk_filter_reference(*arenas, spec, res)
         torch.cuda.synchronize()
-        err = max(_max_err(g, r) for g, r in zip(got, ref, strict=True))
+        err = _max_err(got, ref)
         _require(err == 0, f"K1a {label}: max |kernel - plain| = {err}")
         return got, err
 
@@ -501,13 +526,12 @@ def _kernel_k1a(stream, dev):
                                   "shift", "shift_c", "quant", "quant_c",
                                   "iir_reset", "iir_reset_c"))
         read += _nbytes(*(res or ()))
-        written = _nbytes(*got)
-        cost = _record(0, ms, plain_ms, read + written,
-                       36 * sum(o.numel() for o in got))
+        written = _nbytes(got)
+        cost = _record(0, ms, plain_ms, read + written, 36 * got.numel())
         NB, S = chunk_layout(spec).groups[0][:2]
         steps = NB * S
         print(f"[kernels] K1a mlp_filter_arena headline chunk ({mode}, "
-              f"output {[tuple(o.shape) for o in got]}): bit-exact; kernel "
+              f"output {tuple(got.shape)}): bit-exact; kernel "
               f"{ms:.4f} ms on the card ({ev:.4f} ms per call back to back; "
               f"{ms * 1e6 / steps:.1f} ns per dependent step of {steps}), "
               f"bound {cost['bound_ms']:.4f} ms ({(read + written) / 1e6:.3f}"
@@ -530,6 +554,80 @@ def _kernel_k1a(stream, dev):
           f"({', '.join(c[0] for c in CHUNK_LANES_EDGES)}): bit-exact")
     record["max_abs_err"] = k1a_err
     return record
+
+
+def _kernel_k1_layouts(dev) -> dict:
+    """K1 on lane-leading residuals (staged in place), writing lane-leading
+    output (``mlp_filter_blocks``, the engine's entry) or the frame-major
+    channels (``mlp_filter_frames``, the step's: zero states, no final
+    states), against the plain version behind permutes, bit-exact, at
+    ``FILTER_EDGES`` (null initial states where a case has none); then
+    each layout's card time at the step batch beside the time-leading
+    K1's, on the same inputs.  Returns the card times."""
+    import numpy as np
+    import torch
+
+    from dvda_tpu_torch.ops.mlp_filter import (mlp_filter_blocks,
+                                               mlp_filter_blocks_tl,
+                                               mlp_filter_blocks_tl_reference,
+                                               mlp_filter_frames)
+    from dvda_tpu_torch.parallel.step import example_batch
+    from dvda_tpu_torch.testutil import (FILTER_EDGES, filter_inputs,
+                                         frame_channels)
+
+    for B, NB, S, extreme, states in FILTER_EDGES:
+        args = [torch.from_numpy(np.asarray(x)).to(dev) for x in
+                filter_inputs(B + S, B, NB, S, extreme, states)]
+        res = args[0].permute(2, 0, 1).contiguous()
+        ref = mlp_filter_blocks_tl_reference(*args)
+        got = mlp_filter_blocks(res, *args[1:8],
+                                *(args[8:] if states else (None, None)))
+        err = max(_max_err(got[0], ref[0].permute(2, 0, 1)),
+                  _max_err(got[1], ref[1]), _max_err(got[2], ref[2]))
+        C = frame_channels(B)
+        frames = mlp_filter_frames(*(a.reshape((B // C, C) + a.shape[1:])
+                                     for a in [res] + args[1:8]))
+        zero = mlp_filter_blocks_tl_reference(*args[:8], None, None)[0]
+        err = max(err, _max_err(frames, zero.reshape(NB * S, B // C, C)
+                                .transpose(0, 1)))
+        _require(err == 0, f"K1 layouts B={B} NB={NB} S={S}: max |kernel - "
+                           f"plain| = {err}")
+    print("[kernels] K1 lane-leading in, lane-leading and frame-major out, "
+          "at the edge shapes (B x NB x S, C): " + "; ".join(
+              f"{e[0]}x{e[1]}x{e[2]}, {frame_channels(e[0])}"
+              for e in FILTER_EDGES) + ": bit-exact")
+    b = example_batch(device=dev, **STEP)
+    F, C, NB, S = b.residuals.shape
+    lanes = [getattr(b, k) for k in ("residuals", "rc_fir", "rc_iir",
+                                     "shift", "quant", "iir_reset",
+                                     "iir_init", "block_len")]
+    flat = [x.reshape((F * C,) + tuple(x.shape[2:])) for x in lanes]
+    tl = (flat[0].permute(1, 2, 0).contiguous(), *flat[1:],
+          flat[0].new_zeros((F * C, 8)), flat[0].new_zeros((F * C, 8)))
+    calls = {"time_leading": lambda: mlp_filter_blocks_tl(*tl),
+             "lane_leading": lambda: mlp_filter_blocks(*flat),
+             "frame_major": lambda: mlp_filter_frames(*lanes)}
+    want = mlp_filter_blocks_tl(*tl)[0]
+    _require(torch.equal(mlp_filter_blocks(*flat)[0],
+                         want.permute(2, 0, 1))
+             and torch.equal(mlp_filter_frames(*lanes),
+                             want.reshape(NB * S, F, C).transpose(0, 1)),
+             "K1's layouts differ from each other at the step batch")
+    times = {}
+    for name in ("time_leading", "lane_leading", "frame_major",
+                 "frame_major", "lane_leading", "time_leading"):
+        times.setdefault(name, []).append(_times(calls[name], 50))
+    # the bytes the lane-leading entries must move: residuals in, output
+    # out, the parameters
+    nbytes = _nbytes(*tl[:8]) + want.numel() * 4
+    print(f"[kernels] K1 at the step batch [B, NB, S] = {F * C, NB, S} on "
+          "the same inputs, card ms (in turns ms / ms; per call back to "
+          "back): " + "; ".join(
+              f"{k} {v[0][0]:.4f} / {v[1][0]:.4f} ({v[0][1]:.4f})"
+              for k, v in times.items())
+          + f"; bound {nbytes / HBM_BPS * 1e3:.4f} ms ({nbytes / 1e6:.2f} "
+          "MB); all three equal")
+    return {k: min(t[0] for t in v) for k, v in times.items()}
 
 
 def _pcm_track_chunks(layout, track: int):
@@ -598,6 +696,7 @@ def phase_kernels(stream, plain, enc_path):
           f"({ev:.4f} ms per call back to back; {ms * 1e6 / (16 * 40):.1f} "
           f"ns per dependent step of 640), plain {plain_ms:.2f} ms per call")
     results["mlp_filter"] = _record(k1_err, ms, plain_ms, *k1_cost)
+    results["mlp_filter"]["layouts"] = _kernel_k1_layouts(dev)
 
     # K234 at the headline chunk: 256 chains x 8 frames x L0=80, 6 channels,
     # 3 active matrix slots, 24-bit pack
@@ -1484,6 +1583,53 @@ def phase_profile(layout, stream, smi: str):
           f"{smi}")
 
 
+#: the hand-built unfused chunk at the headline's size: 256 chains of 8
+#: frames of 80 samples, 5.1 in two substreams of different block
+#: geometry (2 channels of 16 blocks x 40, 4 of 8 blocks x 80)
+UNFUSED = dict(seed=21, Bc=CHUNK, L0=L0, fpc=8,
+               geometry=((2, 16, 40), (4, 8, 80)))
+
+
+def phase_unfused(smi: str):
+    """A chunk whose substreams differ in block geometry (the synthesiser
+    cannot make one; ``testutil.unfused_chunk_inputs`` builds its arenas
+    by hand) through ``uniform_arena_pipeline`` on the card: one K1a
+    launch per substream, each writing its lanes at their columns of the
+    one series K234 reads; bit-exact against the plain chunk program;
+    under the profiler 2 x K1a + K234 records only, equal to the
+    counters; its card time."""
+    import torch
+
+    from dvda_tpu_torch.codecs.mlp import native_engine as ne
+    from dvda_tpu_torch.ops.chunk_filter import chunk_filter
+    from dvda_tpu_torch.testutil import unfused_chunk_inputs
+
+    arenas, spec = unfused_chunk_inputs(**UNFUSED)
+    dev = torch.device("cuda", 0)
+    a = ne.arenas_to_device(*arenas, spec, dev)
+    _zero_launches()
+    joined = chunk_filter.joined
+    got = ne.uniform_arena_pipeline(*a, spec)
+    torch.cuda.synchronize()
+    launched = _launched("mlp_filter_arena_kernel", "output_stage_kernel")
+    want = {"mlp_filter_arena_kernel": 2, "output_stage_kernel": 1}
+    _require(launched == want and chunk_filter.joined == joined + 1,
+             f"the unfused chunk launched {launched}, expected {want}")
+    K1A_PATHS["unfused chunk"] = launched["mlp_filter_arena_kernel"]
+    plain = ne.uniform_arena_pipeline(
+        *ne.arenas_to_device(*arenas, spec, "cpu"), spec)
+    err = _max_err(got.cpu(), plain)
+    _require(err == 0, f"the unfused chunk: max |card - plain| = {err}")
+    kinds = _records_only("unfused", want, "the unfused chunk")
+    ms, ev = _times(lambda: ne.uniform_arena_pipeline(*a, spec), 20)
+    print(f"[unfused] {smi}; chunk of {UNFUSED['Bc']} chains, substreams "
+          f"(n_ch, NB0, S0) {UNFUSED['geometry']}: launches {launched}, "
+          f"each K1a at its columns of one series; == the plain chunk "
+          f"program ({tuple(got.shape)} bytes); under the profiler records "
+          f"{kinds} == launches, no copy; {ms:.4f} ms on the "
+          f"card ({ev:.4f} ms per call back to back)")
+
+
 def phase_tiers(smi: str):
     """The three-tier streams through the port on the card, narrow
     readback on and off, in both modes: equal to each other and to
@@ -1989,10 +2135,12 @@ def _plain_step(b):
 
 
 def phase_step(smi: str):
-    """The fused decode step on the card and its sharded form."""
+    """The fused decode step on the card and its sharded form; one step
+    under the profiler: K1 and K9 only."""
     import torch
 
-    from dvda_tpu_torch.ops.mlp_filter import mlp_filter_blocks_tl
+    from dvda_tpu_torch.ops.mlp_filter import (mlp_filter_blocks_tl,
+                                               mlp_filter_frames)
     from dvda_tpu_torch.ops.rematrix import frame_remix
     from dvda_tpu_torch.parallel.mesh import make_mesh
     from dvda_tpu_torch.parallel.step import (decode_step, example_batch,
@@ -2024,6 +2172,13 @@ def phase_step(smi: str):
     torch.cuda.synchronize()
     _require(torch.equal(sharded, got),
              "make_sharded_step differs from decode_step")
+    # one step under the profiler: its card records are K1 and K9 only
+    # (no copy, fill or other kernel), equal to the counters
+    kinds = _records_only("step", {"mlp_filter_kernel": 1,
+                                   "frame_remix_kernel": 1},
+                          "a profiled decode_step")
+    print(f"[step] one decode_step under the profiler: records {kinds} == "
+          "launches, no copy, fill or other kernel")
     # K1 alone at the step's lanes (the flat inputs decode_step builds)
     F, C, NB, S = b.residuals.shape
 
@@ -2036,12 +2191,19 @@ def phase_step(smi: str):
                    "rc_fir", "rc_iir", "shift", "quant", "iir_reset",
                    "iir_init", "block_len")), zeros, zeros)
     k1_ms, k1_ev = _times(lambda: mlp_filter_blocks_tl(*k1_args), 20)
+    lanes = [getattr(b, k) for k in ("residuals", "rc_fir", "rc_iir",
+                                     "shift", "quant", "iir_reset",
+                                     "iir_init", "block_len")]
+    fm_ms, fm_ev = _times(lambda: mlp_filter_frames(*lanes), 20)
     print(f"[step] {smi}; K1 at the step's [NB, S, B] = {NB, S, F * C}: "
-          f"kernel {k1_ms:.4f} ms on the card ({k1_ev:.4f} ms per call back "
-          f"to back; {k1_ms * 1e6 / (NB * S):.1f} ns per dependent step of "
-          f"{NB * S})")
+          f"time-leading {k1_ms:.4f} ms on the card ({k1_ev:.4f} ms per "
+          f"call back to back; {k1_ms * 1e6 / (NB * S):.1f} ns per "
+          f"dependent step of {NB * S}); frame-major on the batch's own "
+          f"[F, C, NB, S] residuals (the step's K1) {fm_ms:.4f} ms "
+          f"({fm_ev:.4f} back to back)")
     for _ in range(3):
         decode_step(b)
+    card_ms = device_ms(lambda: decode_step(b), 20)
     t = time.perf_counter()
     ms = events_ms(lambda: decode_step(b), 20)
     wall_ms = (time.perf_counter() - t) * 1e3 / 20
@@ -2052,7 +2214,8 @@ def phase_step(smi: str):
     print(f"[step] {smi}; decode_step {ms:.4f} ms per step (CUDA events "
           "over 20 steps queued back to back, no synchronisation inside a "
           f"step); host wall {wall_ms:.4f} ms per step (the final "
-          "synchronisation included)")
+          f"synchronisation included); card time {card_ms:.4f} ms per step "
+          "(20 steps queued behind a spin)")
 
 
 def phase_synth_engine(work: str, n_frames: int, name: str, **kw):
@@ -2099,12 +2262,12 @@ def phase_engine(layout, smi: str):
     from dvda_tpu_torch.codecs.mlp.native_engine import decode_host_complete
     from dvda_tpu_torch.codecs.mlp.track import assemble_track_stream
     from dvda_tpu_torch.config import DecodeConfig
-    from dvda_tpu_torch.ops.mlp_filter import (mlp_filter_blocks,
-                                               mlp_filter_blocks_tl,
+    from dvda_tpu_torch.ops.mlp_filter import (mlp_filter_blocks_tl,
                                                mlp_filter_blocks_tl_reference)
     from dvda_tpu_torch.ops.rematrix import frame_remix
     from dvda_tpu_torch.utils.profiling import global_timer
 
+    filter_lanes = engine.filter_lanes
     conf = DecodeConfig(device=DEV, use_native=False)
     captured, filtered = [], []
 
@@ -2112,15 +2275,15 @@ def phase_engine(layout, smi: str):
         captured.append((args, kw))
         return frame_remix(*args, **kw)
 
-    def capture_k1(*args):  # the engine's K1 arguments and results
-        res = mlp_filter_blocks(*args)
-        filtered.append((args, res))
+    def capture_k1(lanes, device):  # the engine's filter call: its host
+        res = filter_lanes(lanes, device)  # arrays and K1's results
+        filtered.append(([x.copy() for x in lanes], res))
         return res
 
     counters = {"mlp_filter": mlp_filter_blocks_tl,
                 "frame_remix": frame_remix}
     engine.frame_remix = capture
-    engine.mlp_filter_blocks = capture_k1
+    engine.filter_lanes = capture_k1
     try:
         reader = _open_track(layout, conf)
         for fn in counters.values():
@@ -2134,7 +2297,7 @@ def phase_engine(layout, smi: str):
         stages = dict(global_timer.totals)
     finally:
         engine.frame_remix = frame_remix
-        engine.mlp_filter_blocks = mlp_filter_blocks
+        engine.filter_lanes = filter_lanes
     _require(reader.decode_info.get("path") == "engine",
              f"the engine disc took the {reader.decode_info} path")
     K1_PATHS["engine"] = launches["mlp_filter"]
@@ -2152,11 +2315,13 @@ def phase_engine(layout, smi: str):
              f"engine: {len(got)} port bytes differ from the {len(ref)} "
              "host-complete bytes")
     # K1 at the engine's shapes, against its plain version on the same
-    # (transposed) inputs, tolerance 0: output and final states
+    # (transposed) inputs from zero states, tolerance 0: output and final
+    # states
     k1_err, lanes = 0, []
-    for args, (out, fir_f, iir_f) in filtered:
-        ref = mlp_filter_blocks_tl_reference(
-            args[0].permute(1, 2, 0).contiguous(), *args[1:])
+    for host, (out, fir_f, iir_f) in filtered:
+        args = [torch.from_numpy(x).to(DEV) for x in host]
+        ref = mlp_filter_blocks_tl_reference(args[0].permute(1, 2, 0),
+                                             *args[1:], None, None)
         k1_err = max(k1_err, _max_err(out, ref[0].permute(2, 0, 1)),
                      _max_err(fir_f, ref[1]), _max_err(iir_f, ref[2]))
         lanes.append(tuple(args[0].shape))
@@ -2166,6 +2331,7 @@ def phase_engine(layout, smi: str):
           f"path, launches {launches}; == host-complete: {want} bytes "
           f"identical; K1 at the engine's [B, NB, S] = {lanes} bit-exact "
           "against its plain version (output and final states)")
+    _engine_filter_records(filtered[0][0])
     (args, kw), = captured
     rec = _k9_check(list(args), kw.get("n_mats", 6), "engine disc", reps=20)
     seconds = ENGINE_FRAMES * L0 / HEADLINE["sample_rate"]
@@ -2177,6 +2343,22 @@ def phase_engine(layout, smi: str):
           f"{100 * plan / wall:.1f} % of the wall), host-complete "
           f"{host_wall:.4f} s ({threads} threads); stages {timers}")
     return launches, rec
+
+
+def _engine_filter_records(host) -> None:
+    """The engine's filter call (``codecs/mlp/engine.py::filter_lanes``:
+    its eight lane arrays uploaded from the host, then
+    ``mlp_filter_blocks`` from zero states) on its own host arrays, under
+    the profiler: its card records must be the eight host-to-device
+    copies and one K1, nothing else."""
+    import numpy as np
+
+    np.savez(ENGINE_FILTER, **{f"a{k}": a for k, a in enumerate(host)})
+    kinds = _records_only("engine", {"memcpy HtoD": len(host),
+                                     "mlp_filter_kernel": 1},
+                          "the engine's filter call")
+    print(f"[engine] its filter call on its own inputs under the profiler: "
+          f"records {kinds}, no other record")
 
 
 def phase_bail(layout):
@@ -2221,6 +2403,107 @@ def phase_bail(layout):
     print(f"[bail] {bails[0]!r}; read_all_packed took the spec path in "
           f"{wall:.2f} s; == MlpDecoder on the assembled stream: "
           f"{len(want)} bytes identical")
+
+
+def _capture_call(what: str):
+    """(a call, its inputs kept alive) for a ``--records`` child: one
+    ``decode_step`` at ``STEP``, one chunk program on the ``UNFUSED``
+    chunk, or the engine's filter call on the inputs the engine phase
+    saved (``ENGINE_FILTER``), through the engine's own
+    ``filter_lanes``."""
+    import numpy as np
+    import torch
+
+    dev = torch.device("cuda", 0)
+    if what == "step":
+        from dvda_tpu_torch.parallel.step import decode_step, example_batch
+
+        b = example_batch(device=dev, **STEP)
+        return lambda: decode_step(b)
+    if what == "unfused":
+        from dvda_tpu_torch.codecs.mlp import native_engine as ne
+        from dvda_tpu_torch.testutil import unfused_chunk_inputs
+
+        arenas, spec = unfused_chunk_inputs(**UNFUSED)
+        a = ne.arenas_to_device(*arenas, spec, dev)
+        return lambda: ne.uniform_arena_pipeline(*a, spec)
+    from dvda_tpu_torch.codecs.mlp.engine import filter_lanes
+
+    with np.load(ENGINE_FILTER) as z:
+        host = [z[f"a{k}"] for k in range(len(z.files))]
+    return lambda: filter_lanes(host, dev)
+
+
+def _records_child(what: str) -> int:
+    """``chip_smoke.py --records WHAT``: two calls of
+    :func:`_capture_call`'s call, one under ``torch.profiler`` whose
+    records are not read (a process's first capture has missed its first
+    launch), then one more, taken again at most twice while it records
+    fewer kernels than it launched; prints the last capture's card
+    record names and launch counts as one JSON line."""
+    import torch
+
+    from dvda_tpu_torch.utils.profiling import _profile_call, kernel_launches
+
+    call = _capture_call(what)
+    for _ in range(2):
+        call()
+    torch.cuda.synchronize()
+    _profile_call(call)
+    for _ in range(3):
+        before = kernel_launches()
+        _, records = _profile_call(call)
+        after = kernel_launches()
+        names = [r[0] for r in records]
+        launches = {k: n - before[k] for k, n in after.items()
+                    if n > before[k]}
+        if sum(any(k in n for k in after) for n in names) >= sum(
+                launches.values()):
+            break
+    print(json.dumps({"names": names, "launches": launches}))
+    return 0
+
+
+def _records_only(what: str, want: dict, label: str) -> dict:
+    """One call of ``what`` (:func:`_capture_call`) under the profiler,
+    in a child process of its own: its card records, counted by kind
+    (a port kernel's name, ``memcpy HtoD``, or the record's own name),
+    must be ``want``, and its launch counts ``want``'s kernels.  A child
+    of its own because this card's profiler loses the records of short
+    captures once a process has gone 30 s without one (PERF.md §7).
+    Where a child's captures all lost records of the port's kernels and
+    held no record outside ``want``, a new child takes them again, at
+    most twice: the profiler loses records, it does not make them up."""
+    from dvda_tpu_torch.utils.profiling import kernel_counters
+
+    kernels = {k: n for k, n in want.items() if k in kernel_counters()}
+    for child in range(3):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--records", what], cwd=ROOT,
+                              capture_output=True, text=True, timeout=300)
+        lines = proc.stdout.strip().splitlines()
+        _require(proc.returncode == 0 and lines,
+                 f"{label}: the records child exited {proc.returncode}: "
+                 f"{proc.stderr[-800:]}")
+        got = json.loads(lines[-1])
+        kinds: dict = {}
+        for name in got["names"]:
+            ours = [k for k in kernel_counters() if k in name]
+            kind = (ours[0] if ours else "memcpy HtoD"
+                    if name.startswith("Memcpy HtoD") else name)
+            kinds[kind] = kinds.get(kind, 0) + 1
+        lost = (got["launches"] == kernels and set(kinds) <= set(want)
+                and sum(kinds.get(k, 0) for k in kernels)
+                < sum(kernels.values()))
+        if not lost:
+            break
+        print(f"[records] {label}, child {child + 1}: the profiler kept "
+              f"{kinds} of launches {got['launches']}; taken again",
+              flush=True)
+    _require(kinds == want and got["launches"] == kernels,
+             f"{label} recorded {kinds} (launches {got['launches']}), "
+             f"expected {want}")
+    return kinds
 
 
 def _zero_launches() -> None:
@@ -2415,6 +2698,11 @@ def phase_bench():
           f"({got.get('device_idle_share_reason') or 'records agree'}); "
           f"multi_device_scaling {mds['decode_s_by_devices']} s (spread "
           f"{mds['spread_by_devices']}); {wall:.1f} s")
+    counts = "; ".join(
+        f"{c} {got['configs'][c].get('mlp_joined_chunks')} of "
+        f"{got['configs'][c].get('mlp_chunks')}" for c in BENCH_CONFIGS)
+    print("[bench] MLP chunks a run with more than one K1a launch (their "
+          f"launches joined into one series), of all, per config: {counts}")
 
 
 def main() -> int:
@@ -2423,10 +2711,12 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--records"] and len(sys.argv) == 3:
+        return _records_child(sys.argv[2])
 
     name, smi = phase_device()
     phase_build()
-    work = os.path.join(ROOT, "build", "chip_smoke")
+    work = WORK
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(work)
     try:
@@ -2435,6 +2725,7 @@ def main() -> int:
         kernels = phase_kernels(stream, plain, enc_path)
         launches = phase_main(layout, cfg, smi)
         phase_profile(layout, stream, smi)
+        phase_unfused(smi)
         phase_modes(layout, smi)
         launches.update(phase_cppm(plain, enc_path, n_sectors, smi))
         phase_tiers(smi)

@@ -295,15 +295,18 @@ class _Disc:
 
     def port(self, config, side="port"):
         from ..api import TrackReader
+        from ..ops.chunk_filter import chunk_filter
 
         out, stats = [], []
         for n in self.tracks:
             aob = _counting_aob(self.path, self.decrypt)
             reader = TrackReader(aob, self._track(n), config=config)
+            joined = chunk_filter.joined
             out.append(reader.read_all_packed())
             reader.close()
             stats.append(dict(reader.decode_info, codec=reader.codec,
-                              read_calls=aob.calls, read_sectors=aob.sectors))
+                              read_calls=aob.calls, read_sectors=aob.sectors,
+                              joined_chunks=chunk_filter.joined - joined))
         _sync(config.resolved_device())
         self.stats[side] = stats
         return out
@@ -387,6 +390,8 @@ def _record_side(results, name, audio, runs, who, ref, disc):
         host_runs_s=host_times, stages_s=dict(stages),
         read_calls_per_run=sum(s["read_calls"] for s in disc.stats[who]),
         read_sectors_per_run=sum(s["read_sectors"] for s in disc.stats[who]),
+        mlp_chunks=sum(s.get("chunks", 0) for s in disc.stats[who]),
+        mlp_joined_chunks=sum(s["joined_chunks"] for s in disc.stats[who]),
         tracks=disc.stats[who])
     return entry, probes
 
@@ -606,6 +611,7 @@ def bench_pipeline_composition(ctx, results, seconds=30, reps=3):
     host-complete's."""
     from ..codecs.mlp.native_engine import decode_host_complete, decode_native
     from ..codecs.params import StreamParameters
+    from ..ops.chunk_filter import chunk_filter
     from ..testutil.synth import BPS_CODE, RATE_CODE
     from ..utils.profiling import global_timer
 
@@ -619,18 +625,22 @@ def bench_pipeline_composition(ctx, results, seconds=30, reps=3):
     want = decode_host_complete(stream, bnd, len(stream), params, True,
                                 dc.resolved_parse_threads())
 
+    info = {}
+
     def run():
         out = decode_native(stream, bnd, len(stream), params,
-                            want_packed=True, config=dc)
+                            want_packed=True, config=dc, info=info)
         _sync(device)
         return out
 
     best = None
     for rep in range(reps + 1):  # the first warms up, untimed
         global_timer.reset()
+        joined = chunk_filter.joined
         t0 = time.perf_counter()
         out = run()
         e2e = time.perf_counter() - t0
+        joined = chunk_filter.joined - joined
         if out is None or not np.array_equal(out.reshape(-1),
                                              want.reshape(-1)):
             raise BenchMismatch("pipeline_composition: decode_native's "
@@ -656,6 +666,8 @@ def bench_pipeline_composition(ctx, results, seconds=30, reps=3):
         "ours_x_realtime": round(audio / e2e, 1),
         "bytes_equal_host": True,
         "virtual_mesh": None,  # the JAX 8-device child: no counterpart
+        "mlp_chunks": info.get("chunks", 0),
+        "mlp_joined_chunks": joined,
     }
     log(f"pipeline_composition (device): {entry}")
     results["pipeline_composition"] = entry
@@ -1108,7 +1120,9 @@ _SLIM_KEYS = ("ours_x_realtime", "ref_x_realtime", "vs_baseline",
               "baseline", "host_x_realtime", "host_median_x_realtime",
               "standard_x_realtime", "device_huffman_x_realtime",
               "device_compute_x_realtime", "device_idle_share",
-              "read_calls_per_run")
+              "read_calls_per_run",
+              # MLP chunks a run, and those with more than one K1a launch
+              "mlp_chunks", "mlp_joined_chunks")
 
 
 def _slim(results):

@@ -47,7 +47,17 @@ from ...ops.rematrix import frame_remix
 from ...utils.profiling import global_timer
 from .spec import MAX_MATRICES, MlpDecoder, MlpFrameError, SubstreamState
 
-__all__ = ["BatchedMlpDecoder", "PlanBail"]
+__all__ = ["BatchedMlpDecoder", "PlanBail", "filter_lanes"]
+
+
+def filter_lanes(lanes, device: torch.device):
+    """The engine's filter call: its eight lane arrays (numpy, the
+    arguments of :func:`mlp_filter_blocks` from ``residuals`` to
+    ``block_len``) uploaded to ``device``, then the filter from zero
+    states (``None``: nothing uploaded).  Returns the filter's (out
+    [B, NB, S], fir_state, iir_state)."""
+    return mlp_filter_blocks(*(torch.from_numpy(x).to(device)
+                               for x in lanes))
 
 
 class PlanBail(Exception):
@@ -351,11 +361,8 @@ class BatchedMlpDecoder:
                     lane_meta.append((s, chain, c, lane))
                     lane += 1
 
-        zeros = np.zeros((B, 8), dtype=np.int32)
-        out, _, _ = mlp_filter_blocks(*(
-            torch.from_numpy(x).to(device) for x in (
-                residuals, rc_fir, rc_iir, shift, quant, iir_reset, iir_init,
-                block_len, zeros, zeros)))
+        out, _, _ = filter_lanes((residuals, rc_fir, rc_iir, shift, quant,
+                                  iir_reset, iir_init, block_len), device)
         out = out.cpu().numpy()  # [B, NB, S]
 
         # ---- reassemble per-channel time series --------------------------

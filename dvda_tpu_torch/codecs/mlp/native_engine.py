@@ -701,7 +701,9 @@ def _chunk_program(a4, a2, a1, spec, words=None):
     reading its inputs from the arenas), then K234 or K234n; in
     device-Huffman mode first K10 (K5's lane inputs and the residual
     buffers, :func:`chunk_lanes`) and K5 per substream, each writing its
-    lanes of the launch's residual buffer, then K1a on those buffers."""
+    lanes of the launch's residual buffer, then K1a on those buffers.
+    Where the substreams' geometries differ, each K1a launch writes its
+    lanes at their columns of the one series K234 reads."""
     arrs, flags = unpack_spec(a4, a2, a1, spec)
     if "__pallas__" in flags:
         raise NotImplementedError(
@@ -721,16 +723,11 @@ def _chunk_program(a4, a2, a1, spec, words=None):
                 *args, **kw, out=residuals[g], lane0=lane0)
             if "bypk" in kw:
                 byp = slots
-    # substreams of one (NB0, S0) run ONE filter launch on the fused lanes
-    outs = chunk_filter(a4, a2, a1, spec, residuals)
-    # time-leading join: [NB0, S0, lanes] flattens to [period, lanes] for
-    # free; substreams of different geometry (one launch each) concatenate
-    # their channel-major lanes into the global order c*Bc + b
-    if len(outs) == 1:
-        series = outs[0].view(outs[0].shape[0] * outs[0].shape[1], -1)
-    else:
-        series = torch.cat([o.reshape(o.shape[0] * o.shape[1], -1)
-                            for o in outs], dim=1)
+    # substreams of one (NB0, S0) run ONE filter launch on the fused lanes;
+    # substreams of different geometry (one launch each) write their
+    # channel-major lanes at their columns of the series, in the global
+    # order c*Bc + b (dvda_tpu's concatenation on the lane axis)
+    series = chunk_filter(a4, a2, a1, spec, residuals)
     nbytes = 3 if "__pack24__" in flags else 2 if "__pack16__" in flags else 0
     tier = (flags["__narrow__"] or 16) if (nbytes == 3
                                            and "__narrow__" in flags) else 0

@@ -63,7 +63,7 @@ __global__ void __launch_bounds__(kFilterLanes) mlp_filter_arena_kernel(
     const __grid_constant__ ChunkLanesDesc d, const ChunkArenas A,
     int64_t n4, int64_t n2, int64_t n1, int B, int NB, int S,
     const int32_t* __restrict__ res_tl, bool vec,
-    int32_t* __restrict__ out_tl) {
+    int32_t* __restrict__ out_tl, int ldo) {
   constexpr bool kStaged = kResW == 0;
   // int32 tiles (K5's residuals) or each lane's raw area, 16 bytes more
   // than kChunkRawBytes: lane areas 68 words apart, not 64 (bank
@@ -129,17 +129,17 @@ __global__ void __launch_bounds__(kFilterLanes) mlp_filter_arena_kernel(
     __syncthreads();
     const int t0 = k * kFilterRows;
     const int rows = min(kFilterRows, T - t0);
-    int32_t* __restrict__ out = out_tl + (int64_t)t0 * B + lane;
+    int32_t* __restrict__ out = out_tl + (int64_t)t0 * ldo + lane;
     const int q = k % kFilterStages;
     if (live) {
       if constexpr (kStaged)
         mlp_filter_tile(L, lane, NB, S, t, MlpFilterColumn{tile_of(q), tid},
-                        rows, out, B);
+                        rows, out, ldo);
       else
         mlp_filter_tile(L, lane, NB, S, t,
                         chunk_filter_runs<kResW>(raw_of(q), st, S, t0,
                                                  granules),
-                        rows, out, B);
+                        rows, out, ldo);
     }
     __syncthreads();
   }
@@ -150,20 +150,24 @@ __global__ void __launch_bounds__(kFilterLanes) mlp_filter_arena_kernel(
 // K1a on one filter group: ``desc`` the group's ChunkLanesDesc (its
 // substreams in lane order), arenas of n4 / n2 / n1 elements, ``res_tl``
 // K5's [NB, S, B] residuals or null (standard mode: the arenas'),
-// ``out_tl`` [NB, S, B].  Returns -1 where the descriptor is not
-// ChunkLanesDesc's size or does not describe B lanes of blocks [NB, S];
-// else launches on ``stream`` and returns cudaGetLastError().  Never
-// synchronises and allocates nothing.
+// ``out_tl`` the group's first column of a time-leading series of rows
+// ``ldo`` >= B elements apart (row t = nb*S + s; dvda_tpu joins the
+// groups' lanes on that axis, native_engine.py:262-267, so each group
+// writes its lanes at its column offset of one series).  Returns -1
+// where the descriptor is not ChunkLanesDesc's size or does not describe
+// B lanes of blocks [NB, S], or ldo < B; else launches on ``stream`` and
+// returns cudaGetLastError().  Never synchronises and allocates nothing.
 extern "C" int dvda_chunk_filter(const int64_t* desc, int64_t n_words,
                                  const int32_t* a4, const int16_t* a2,
                                  const int8_t* a1, int64_t n4, int64_t n2,
                                  int64_t n1, const int32_t* res_tl,
                                  int32_t* out_tl, int B, int NB, int S,
-                                 void* stream) {
+                                 int ldo, void* stream) {
   if (n_words * 8 != (int64_t)sizeof(ChunkLanesDesc)) return -1;
   ChunkLanesDesc d;
   memcpy(&d, desc, sizeof d);
-  if (!chunk_filter_desc_ok(d, B, NB, S, res_tl != nullptr)) return -1;
+  if (!chunk_filter_desc_ok(d, B, NB, S, res_tl != nullptr) || ldo < B)
+    return -1;
   if (B <= 0) return 0;
   const bool vec = B % 4 == 0 && (uintptr_t)res_tl % 16 == 0;
   const int blocks = (B + kFilterLanes - 1) / kFilterLanes;
@@ -172,7 +176,7 @@ extern "C" int dvda_chunk_filter(const int64_t* desc, int64_t n_words,
   // one width (K5's, int16, int32), else any widths
   auto run = [&](auto kernel) {
     kernel<<<blocks, kFilterLanes, 0, (cudaStream_t)stream>>>(
-        d, A, n4, n2, n1, B, NB, S, res_tl, vec, out_tl);
+        d, A, n4, n2, n1, B, NB, S, res_tl, vec, out_tl, ldo);
   };
   const int rw = chunk_filter_res_width(d, res_tl != nullptr);
   if (!chunk_filter_usual(d))

@@ -292,7 +292,8 @@ extern "C" int cpu_chunk_lanes(const int64_t* desc, int64_t n_words,
 template <bool kUsual, int kResW>
 static void chunk_filter_group(const ChunkLanesDesc& d, const ChunkArenas& A,
                                const int64_t* n, const int32_t* res_tl,
-                               int32_t* out_tl, int B, int NB, int S) {
+                               int32_t* out_tl, int ldo, int B, int NB,
+                               int S) {
   const int T = NB * S;
   int32_t tile[kFilterRows][kFilterLanes];
   static unsigned char raw[kFilterLanes][kChunkRawBytes];
@@ -317,13 +318,13 @@ static void chunk_filter_group(const ChunkLanesDesc& d, const ChunkArenas& A,
     }
     for (int t0 = 0; t0 < T; t0 += kFilterRows) {
       const int rows = T - t0 < kFilterRows ? T - t0 : kFilterRows;
-      int32_t* out = out_tl + (int64_t)t0 * B + lane0;
+      int32_t* out = out_tl + (int64_t)t0 * ldo + lane0;
       if (kResW == 0) {
         for (int r = 0; r < rows; ++r)
           memcpy(tile[r], res_tl + (int64_t)(t0 + r) * B + lane0, 4 * nl);
         for (int j = 0; j < nl; ++j)
           mlp_filter_tile(lanes[j], lane0 + j, NB, S, t[j],
-                          MlpFilterColumn{tile, j}, rows, out + j, B);
+                          MlpFilterColumn{tile, j}, rows, out + j, ldo);
         continue;
       }
       for (int j = 0; j < nl; ++j) {
@@ -341,7 +342,7 @@ static void chunk_filter_group(const ChunkLanesDesc& d, const ChunkArenas& A,
         mlp_filter_tile(
             lanes[j], lane0 + j, NB, S, t[j],
             chunk_filter_runs<kResW>(raw[j], st[j], S, t0, granules[j]),
-            rows, out + j, B);
+            rows, out + j, ldo);
     }
   }
 }
@@ -352,46 +353,56 @@ extern "C" int cpu_chunk_filter(const int64_t* desc, int64_t n_words,
                                 const int32_t* a4, const int16_t* a2,
                                 const int8_t* a1, int64_t n4, int64_t n2,
                                 int64_t n1, const int32_t* res_tl,
-                                int32_t* out_tl, int B, int NB, int S) {
+                                int32_t* out_tl, int B, int NB, int S,
+                                int ldo) {
   if (n_words * 8 != (int64_t)sizeof(ChunkLanesDesc)) return -1;
   ChunkLanesDesc d;
   memcpy(&d, desc, sizeof d);
-  if (!chunk_filter_desc_ok(d, B, NB, S, res_tl != nullptr)) return -1;
+  if (!chunk_filter_desc_ok(d, B, NB, S, res_tl != nullptr) || ldo < B)
+    return -1;
   const ChunkArenas A{a4, a2, a1};
   const int64_t n[3] = {n4, n2, n1};
   const int rw = chunk_filter_res_width(d, res_tl != nullptr);
   if (!chunk_filter_usual(d)) {
     if (rw == 0)
-      chunk_filter_group<false, 0>(d, A, n, res_tl, out_tl, B, NB, S);
+      chunk_filter_group<false, 0>(d, A, n, res_tl, out_tl, ldo, B, NB, S);
     else
-      chunk_filter_group<false, kChunkResAny>(d, A, n, res_tl, out_tl, B,
-                                              NB, S);
+      chunk_filter_group<false, kChunkResAny>(d, A, n, res_tl, out_tl, ldo,
+                                              B, NB, S);
   } else if (rw == 0) {
-    chunk_filter_group<true, 0>(d, A, n, res_tl, out_tl, B, NB, S);
+    chunk_filter_group<true, 0>(d, A, n, res_tl, out_tl, ldo, B, NB, S);
   } else if (rw == 2) {
-    chunk_filter_group<true, 2>(d, A, n, res_tl, out_tl, B, NB, S);
+    chunk_filter_group<true, 2>(d, A, n, res_tl, out_tl, ldo, B, NB, S);
   } else if (rw == 4) {
-    chunk_filter_group<true, 4>(d, A, n, res_tl, out_tl, B, NB, S);
+    chunk_filter_group<true, 4>(d, A, n, res_tl, out_tl, ldo, B, NB, S);
   } else {
-    chunk_filter_group<false, kChunkResAny>(d, A, n, res_tl, out_tl, B, NB,
-                                            S);
+    chunk_filter_group<false, kChunkResAny>(d, A, n, res_tl, out_tl, ldo,
+                                            B, NB, S);
   }
   return 0;
 }
 
-extern "C" void cpu_mlp_filter(
-    const int32_t* res_tl, const int32_t* rc_fir, const int32_t* rc_iir,
+// K1 as the card runs it, in each layout of dvda_mlp_filter
+// (kFilterTimeLeading, kFilterLaneIn at C channels a frame): the kernel's
+// blocks of kFilterLanes lanes, each walking its rows in tiles of
+// kFilterRows staged into a local copy as the card's shared memory holds
+// them (a [rows, lanes] tile, or lane-major at kFilterRowPitch), each
+// lane's output through the kernel's writer (mlp_filter_writer).  Returns
+// -1 where the kernel's entry would refuse (mlp_filter_layout_ok).
+extern "C" int cpu_mlp_filter(
+    const int32_t* res, const int32_t* rc_fir, const int32_t* rc_iir,
     const int32_t* shift, const int32_t* quant, const uint8_t* iir_reset,
     const int32_t* iir_init, const int32_t* block_len,
-    const int32_t* fir_state0, const int32_t* iir_state0, int32_t* out_tl,
-    int32_t* fir_state, int32_t* iir_state, int B, int NB, int S) {
-  // the kernel's blocks of kFilterLanes lanes, each walking its rows in
-  // tiles of kFilterRows staged into a local copy, as the card's shared
-  // memory holds them
+    const int32_t* fir_state0, const int32_t* iir_state0, int32_t* out,
+    int32_t* fir_state, int32_t* iir_state, int B, int NB, int S,
+    int layout, int C) {
+  if (!mlp_filter_layout_ok(layout, B, C)) return -1;
   const MlpFilterTables t{rc_fir,   rc_iir,   shift,     quant,     iir_reset,
                           iir_init, block_len, fir_state0, iir_state0};
   const int64_t T = (int64_t)NB * S;
+  const bool lane_in = layout == kFilterLaneIn;
   int32_t tile[kFilterRows][kFilterLanes];
+  alignas(16) int32_t rows_of[kFilterLanes][kFilterRowPitch];
   for (int lane0 = 0; lane0 < B; lane0 += kFilterLanes) {
     const int nl = B - lane0 < kFilterLanes ? B - lane0 : kFilterLanes;
     MlpFilterLane lanes[kFilterLanes];
@@ -399,15 +410,29 @@ extern "C" void cpu_mlp_filter(
       mlp_filter_begin(lanes[j], lane0 + j, NB, S, t);
     for (int64_t t0 = 0; t0 < T; t0 += kFilterRows) {
       const int rows = T - t0 < kFilterRows ? (int)(T - t0) : kFilterRows;
-      for (int r = 0; r < rows; ++r)
-        memcpy(tile[r], res_tl + (t0 + r) * B + lane0, 4 * nl);
-      for (int j = 0; j < nl; ++j)
-        mlp_filter_tile(lanes[j], lane0 + j, NB, S, t, MlpFilterColumn{tile, j},
-                        rows, out_tl + t0 * B + lane0 + j, B);
+      if (lane_in) {
+        for (int j = 0; j < nl; ++j)
+          memcpy(rows_of[j], res + (lane0 + j) * T + t0, 4 * rows);
+      } else {
+        for (int r = 0; r < rows; ++r)
+          memcpy(tile[r], res + (t0 + r) * B + lane0, 4 * nl);
+      }
+      for (int j = 0; j < nl; ++j) {
+        const int lane = lane0 + j;
+        const MlpFilterWriter w = mlp_filter_writer(layout, lane, T, B, C);
+        int32_t* o = out + w.base + t0 * w.stride;
+        if (lane_in)
+          mlp_filter_tile(lanes[j], lane, NB, S, t, MlpFilterRow{rows_of[j]},
+                          rows, o, w.stride);
+        else
+          mlp_filter_tile(lanes[j], lane, NB, S, t, MlpFilterColumn{tile, j},
+                          rows, o, w.stride);
+      }
     }
     for (int j = 0; j < nl; ++j)
       mlp_filter_end(lanes[j], lane0 + j, fir_state, iir_state);
   }
+  return 0;
 }
 
 // K234 as the card runs it: the grid's tiles in order, each tile's phases

@@ -4,12 +4,17 @@
 //
 // Layouts are those of dvda_tpu.ops.mlp_filter.mlp_filter_blocks_tl:
 //   residuals / output  int32 [NB, S, B]  time-leading, lanes minor
+//                       (K1 also takes lane-leading residuals [B, NB, S]
+//                       and writes the frame-major [B / C, NB*S, C],
+//                       lane-leading at C = 1: mlp_filter_writer)
 //   rc_fir / rc_iir     int32 [B, NB, 8]  reversed taps (7 = most recent)
 //   shift, quant        int32 [B, NB]
 //   iir_reset           uint8 [B, NB]     nonzero: IIR state := iir_init
 //   iir_init            int32 [B, NB, 8]
 //   block_len           int32 [B, NB]     state frozen at samples >= len
-//   fir/iir state       int32 [B, 8]      initial in, final out
+//   fir/iir state       int32 [B, 8]      initial in, final out; a null
+//                                         initial state is zero, a null
+//                                         final state is not written
 //
 // Arithmetic is C's: an exact int64 accumulate, (int32)(acc >> shift), then
 // the residual add and the quant mask (x >> q) << q.  The int32 add, the
@@ -27,8 +32,9 @@
 // sample (i >= block_len) shifts nothing, so acc and part stay.
 //
 // The caller supplies the residuals through an accessor of the staged
-// tile (MlpFilterColumn: K1's int32 tile in shared memory, or the CPU
-// harness's host copy; K1a's in chunk_filter.cuh), and the next block's
+// tile (MlpFilterColumn: K1's time-leading int32 tile in shared memory,
+// or the CPU harness's host copy; MlpFilterRow: its lane-major tile of
+// lane-leading rows; K1a's in chunk_filter.cuh), and the next block's
 // parameters are loaded one block ahead into registers by a parameter
 // policy (MlpFilterTables; K1a's ChunkFilterTables).
 // Eight live samples of one block (kFilterGroup) whose taps allow float64
@@ -51,6 +57,34 @@
 constexpr int kFilterLanes = 32;
 constexpr int kFilterRows = 32;
 constexpr int kFilterGroup = 8;
+// words between two lanes' rows in a lane-major tile (MlpFilterRow): a
+// multiple of 4, so each lane's rows start 16-byte aligned, and 4 more
+// than a tile's rows, so the 8 lanes of a quarter-warp's 16-byte loads
+// start 4 banks apart and touch all 32 banks once
+constexpr int kFilterRowPitch = kFilterRows + 4;
+
+// K1's layouts (dvda_mlp_filter's ``layout``, input -> output):
+//   kFilterTimeLeading  [NB, S, B] -> [NB, S, B]
+//   kFilterLaneIn       [B, NB, S] -> [B / C, NB*S, C], lane b = f*C + c
+//                       (lane-leading [B, NB, S] at C = 1)
+enum { kFilterTimeLeading = 0, kFilterLaneIn = 1 };
+
+// Whether K1 runs ``layout`` over B lanes at C channels a frame.
+DVDA_HD bool mlp_filter_layout_ok(int layout, int B, int C) {
+  return layout == kFilterTimeLeading ||
+         (layout == kFilterLaneIn && C > 0 && B % C == 0);
+}
+
+// A lane's output rows: row t at out + base + t * stride.
+struct MlpFilterWriter {
+  int64_t base;
+  int stride;
+};
+DVDA_HD MlpFilterWriter mlp_filter_writer(int layout, int lane, int64_t T,
+                                          int B, int C) {
+  if (layout == kFilterTimeLeading) return {lane, B};
+  return {(int64_t)(lane / C) * T * C + lane % C, C};
+}
 
 // One block's parameters of one lane.
 struct MlpFilterBlock {
@@ -90,11 +124,12 @@ struct MlpFilterTables {
     p.rst = iir_reset[pb];
   }
 
+  // a null initial state is zero
   DVDA_HD void state0(int32_t* fs, int32_t* is, int lane) const {
 #pragma unroll
     for (int k = 0; k < 8; ++k) {
-      fs[k] = fir_state0[lane * 8 + k];
-      is[k] = iir_state0[lane * 8 + k];
+      fs[k] = fir_state0 ? fir_state0[lane * 8 + k] : 0;
+      is[k] = iir_state0 ? iir_state0[lane * 8 + k] : 0;
     }
   }
 };
@@ -279,6 +314,24 @@ struct MlpFilterColumn {
   }
 };
 
+// A lane's staged rows in a lane-major tile (lane-leading residuals,
+// kFilterRowPitch words a lane): ``row`` is the lane's first, 16-byte
+// aligned; a group's rows start at a multiple of kFilterGroup, so it is
+// two 16-byte loads.
+struct MlpFilterRow {
+  const int32_t* row;
+  DVDA_HD int32_t operator()(int r) const { return row[r]; }
+  DVDA_HD void group(int r, int32_t* v) const {
+    static_assert(kFilterGroup == 8, "a group is two 16-byte loads");
+    const DvdaWords4 a = dvda_load16(row + r), b = dvda_load16(row + r + 4);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[j] = a.w[j];
+      v[j + 4] = b.w[j];
+    }
+  }
+};
+
 // How the next kFilterGroup samples of the current block run (entering the
 // block first if the last one ended): kFilterLive, all live and float64
 // taps, by mlp_filter_run_f64; kFilterFrozen, all past block_len, by
@@ -393,13 +446,14 @@ DVDA_HD void mlp_filter_tile(MlpFilterLane& L, int lane, int NB, int S,
   }
 }
 
+// The lane's final states; a null one is not written.
 DVDA_HD void mlp_filter_end(const MlpFilterLane& L, int lane,
                             int32_t* __restrict__ fir_state,
                             int32_t* __restrict__ iir_state) {
 #pragma unroll
   for (int k = 0; k < 8; ++k) {
-    fir_state[lane * 8 + k] = L.fs[k];
-    iir_state[lane * 8 + k] = L.is[k];
+    if (fir_state) fir_state[lane * 8 + k] = L.fs[k];
+    if (iir_state) iir_state[lane * 8 + k] = L.is[k];
   }
 }
 
@@ -434,6 +488,36 @@ __device__ __forceinline__ void stage_tile(int32_t (*dst)[kFilterLanes],
       asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
                        smem_addr(&dst[r][tid])),
                    "l"(res + (t0 + r) * B + lane0 + tid));
+  }
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Rows [t0, t0 + kFilterRows) of the block's lanes from lane-leading
+// residuals [B, T] into one lane-major stage (kFilterRowPitch words a
+// lane).  A lane's rows of a tile are one contiguous run of 128 bytes:
+// with ``vec`` (T % 4 == 0 and an aligned base: a granule of 4 rows is
+// then all inside T or all outside) 8 threads copy a lane's run, 16
+// bytes each, so a warp's copy reads 4 whole lines; else a thread copies
+// one row of every lane, 4 bytes at a time, a warp reading one lane's run
+// a copy.
+__device__ __forceinline__ void stage_lane_tile(
+    int32_t* dst, const int32_t* __restrict__ res, int64_t t0, int64_t T,
+    int B, int lane0, bool vec) {
+  const int tid = threadIdx.x;
+  if (vec) {
+#pragma unroll
+    for (int u = 0; u < kFilterRows * kFilterLanes / 4 / kFilterLanes; ++u) {
+      const int c = tid + u * kFilterLanes, l = c >> 3, q = (c & 7) * 4;
+      if (t0 + q < T && lane0 + l < B)
+        asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                         smem_addr(dst + l * kFilterRowPitch + q)),
+                     "l"(res + (int64_t)(lane0 + l) * T + t0 + q));
+    }
+  } else if (t0 + tid < T) {
+    for (int l = 0; l < kFilterLanes && lane0 + l < B; ++l)
+      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                       smem_addr(dst + l * kFilterRowPitch + tid)),
+                   "l"(res + (int64_t)(lane0 + l) * T + t0 + tid));
   }
   asm volatile("cp.async.commit_group;\n" ::);
 }

@@ -129,7 +129,7 @@ def kernel_library() -> ctypes.CDLL:
     lib.dvda_chunk_lanes.argtypes = [p, i64] + [p] * 4 + [p]
     lib.dvda_chunk_filter.restype = i
     lib.dvda_chunk_filter.argtypes = ([p, i64] + [p] * 3 + [i64] * 3
-                                      + [p] * 2 + [i] * 3 + [p])
+                                      + [p] * 2 + [i] * 4 + [p])
     lib.dvda_frame_remix.restype = i
     lib.dvda_frame_remix.argtypes = [p] * 10 + [i] * 5 + [ctypes.c_uint, p]
     lib.dvda_lane_pack.restype = i
@@ -141,7 +141,7 @@ def kernel_library() -> ctypes.CDLL:
     lib.dvda_huffman_decode.argtypes = ([p, i64, p, i64] + [p] * 11
                                         + [i] * 7 + [i64, i64, p])
     lib.dvda_mlp_filter.restype = i
-    lib.dvda_mlp_filter.argtypes = [p] * 13 + [i, i, i, p]
+    lib.dvda_mlp_filter.argtypes = [p] * 13 + [i] * 5 + [p]
     lib.dvda_output_stage.restype = i
     lib.dvda_output_stage.argtypes = [p] * 12 + [i] * 7 + [p]
     lib.dvda_output_stage_narrow.restype = i

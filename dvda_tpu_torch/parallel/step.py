@@ -6,12 +6,17 @@ ops/mlp_filter.py) on every (frame, channel) lane, then the frame-major
 rematrix with LFSR noise, output shifts and WAVE permutation in one pass
 (kernel K9, ops/rematrix.py::frame_remix).
 
+K1 writes the frame-major channels ``[F, L, C]`` that K9 reads and starts
+from zero states it does not upload (ops/mlp_filter.py::mlp_filter_frames),
+so a step on a card is those two launches and nothing else.
+
 Sharding (parallel/mesh.py): frames split over ``dp`` and channels over
 ``tp``.  K1 runs on each shard's device; the rematrix needs every channel
 of a frame, so each dp row's channel shards are copied onto the row's
 first device (dvda_tpu's all-gather over ``tp``), K9 runs there, and the
-rows are concatenated on the grid's first device.  It is one process
-driving every device of the grid, not ``torch.distributed``.
+rows are concatenated on the grid's first device; an axis of one part
+joins nothing.  It is one process driving every device of the grid, not
+``torch.distributed``.
 
 dvda_tpu's ``batch_shardings`` (the ``NamedSharding`` of each input that
 its jit is given) has no counterpart: the step slices the batch itself.
@@ -24,7 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from ..ops.mlp_filter import mlp_filter_blocks
+from ..ops.mlp_filter import mlp_filter_frames
 from ..ops.rematrix import frame_remix
 
 __all__ = ["DecodeBatch", "decode_step", "make_sharded_step",
@@ -67,12 +72,7 @@ class DecodeBatch(NamedTuple):
 def _filtered(lanes: dict) -> torch.Tensor:
     """K1 over the ``[F, C, ...]`` lane inputs with zero initial states;
     returns the channels frame-major, int32 ``[F, L, C]``."""
-    F, C, NB, S = lanes["residuals"].shape
-    flat = [lanes[k].reshape((F * C,) + tuple(lanes[k].shape[2:]))
-            for k in _LANE_FIELDS]
-    zeros = flat[0].new_zeros((F * C, 8))
-    out, _, _ = mlp_filter_blocks(*flat, zeros, zeros)
-    return out.reshape(F, C, NB * S).transpose(1, 2).contiguous()
+    return mlp_filter_frames(*(lanes[k] for k in _LANE_FIELDS))
 
 
 def decode_step(b: DecodeBatch) -> torch.Tensor:
@@ -106,11 +106,14 @@ def make_sharded_step(mesh):
         rows = []
         for i in range(dp):
             home = grid[i, 0]
-            channels = torch.cat([x.to(home) for x in filtered[i]], 2)
+            parts = [x.to(home) for x in filtered[i]]
+            channels = parts[0] if tp == 1 else torch.cat(parts, 2)
             rows.append(frame_remix(
                 channels, *(getattr(b, k)[i * Fs:(i + 1) * Fs].to(home)
                             .contiguous() for k in _FRAME_FIELDS),
                 b.wave_perm))
+        if dp == 1:
+            return rows[0]
         return torch.cat([r.to(grid[0, 0]) for r in rows], 0)
 
     return step

@@ -43,7 +43,8 @@ __all__ = ["MlpSynthConfig", "synth_mlp_stream", "MlpTrackSpec",
            "encrypt_sectors_batch",
            "cppm_sector_mix", "C2_EDGES", "c2_edge_batch", "PCM_EDGES",
            "CHUNK_LANES_EDGES", "chunk_lanes_inputs",
-           "chunk_filter_staging_inputs", "host_track_bytes"]
+           "chunk_filter_staging_inputs", "unfused_chunk_inputs",
+           "frame_channels", "host_track_bytes"]
 
 
 def filter_inputs(seed: int, B: int, NB: int, S: int, extreme: bool = False,
@@ -176,6 +177,12 @@ FILTER_EDGES = (
     (36, 3, 34, False, True), (40, 3, 38, False, False),
     (64, 2, 28, False, True), (40, 3, 46, False, True),
 )
+
+def frame_channels(B: int) -> int:
+    """C of a frame-major K1 case over ``B`` lanes (lane ``f*C + c``):
+    B's largest divisor of at most 8, the most channels a frame has."""
+    return max(c for c in range(1, 9) if B % c == 0)
+
 
 #: K5 edge cases (name, seed, L, nsub, C, S0, k, NB0, burst, slots, layout)
 #: for :func:`huffman_edge_inputs`: ``chains`` lays the sub-lanes' start
@@ -364,6 +371,57 @@ def chunk_filter_staging_inputs(case: tuple, layout: str):
     else:
         raise ValueError(layout)
     return tuple(arenas), spec
+
+
+def unfused_chunk_inputs(seed: int = 21, Bc: int = 4, L0: int = 20,
+                         fpc: int = 2,
+                         geometry=((2, 4, 10), (4, 2, 20))) -> tuple:
+    """((a4, a2, a1), spec): a standard 5.1 chunk of ``Bc`` chains whose
+    substreams, ``(n_ch, NB0, S0)`` each, have different block geometry,
+    so that K1a runs one launch per substream and the launches join on
+    the lane axis.  The synthesiser cannot make such a stream, so the
+    arenas are built by the port's arena builder by hand: random values
+    in the parser's ranges, per-chain parameter rows, 24-bit packed output
+    (the chunk of tests/test_torch_chunk.py's unfused case at its
+    defaults).  A geometry whose NB0*S0 is not ``L0*fpc`` makes a
+    malformed chunk."""
+    from ..codecs.mlp import native_engine as ne
+
+    rng = np.random.default_rng(seed)
+    C = sum(n_ch for n_ch, _, _ in geometry)
+    period = L0 * fpc
+    F_pad, T_pad = Bc * fpc, Bc * period
+    b = ne._NativeArenaBuilder(None)
+    for s, (n_ch, NB0, S0) in enumerate(geometry):
+        b.add_host(f"s{s}_res", rng.integers(
+            -2000, 2000, (Bc, NB0, n_ch, S0)).astype(np.int16))
+        for name, lo, hi, inner, dt in (
+                ("rc_fir", -900, 900, (n_ch, 8), np.int16),
+                ("rc_iir", -900, 900, (n_ch, 8), np.int16),
+                ("iir_init", -5000, 5000, (n_ch, 8), np.int32),
+                ("shift", 8, 13, (n_ch,), np.int8),
+                ("quant", 0, 3, (n_ch,), np.int8),
+                ("iir_reset", 0, 2, (n_ch,), np.int8)):
+            b.add_host(f"s{s}_{name}_c",
+                       rng.integers(lo, hi, (Bc,) + inner).astype(dt))
+    b.add_host("mat_coeff", rng.integers(-2**14, 2**14, (F_pad, 6, 8))
+               .astype(np.int16))
+    b.add_host("mat_noise", rng.integers(-2**10, 2**10, (F_pad, 6, 2))
+               .astype(np.int16))
+    b.add_host("mat_out", rng.integers(0, C, (F_pad, 6)).astype(np.int8))
+    b.add_host("mat_active", (rng.random((F_pad, 6)) < 0.8).astype(np.int8))
+    b.mark("mat_mm", 6)
+    b.add_host("mat_quant", rng.integers(0, 3, (F_pad, 6)).astype(np.int8))
+    b.add_host("out_shift", rng.integers(0, 3, (F_pad, 8)).astype(np.int8))
+    b.add_host("wave_perm", rng.permutation(C).astype(np.int8))
+    b.add_host("frame_seed", rng.integers(0, 2**32, F_pad, dtype=np.uint64)
+               .astype(np.uint32))
+    b.add_host("frame_nshift", rng.integers(0, 9, F_pad).astype(np.int8))
+    b.add_host("byp", rng.integers(0, 64, T_pad).astype(np.int8))
+    b.add_host("jumps", np.array([ne._jump_columns(k) for k in range(5)],
+                                 dtype=np.uint32))
+    arenas, spec = b.finish()
+    return arenas, spec + (("__pack24__", 0, 0, (), "flag"),)
 
 
 def output_stage_inputs(seed: int, chains: int, fpc: int, L0: int,

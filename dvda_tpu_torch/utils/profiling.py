@@ -177,11 +177,13 @@ def kernel_launches() -> dict[str, int]:
             for name, pairs in kernel_counters().items()}
 
 
-def _profile_call(fn) -> tuple[float, list]:
+def _profile_call(fn, lead_s: float = 0.0) -> tuple[float, list]:
     """(wall seconds, device records) of one call of ``fn`` under a
-    ``torch.profiler`` capture with CPU and CUDA activities, ended by a
-    synchronise.  A record is (name, start us, end us): every kernel,
-    memcpy and memset the card ran in the capture."""
+    ``torch.profiler`` capture with CPU and CUDA activities, made
+    ``lead_s`` of host sleep into the capture (``torch_timing_check.py
+    profiler`` varies it) and ended by a synchronise.  A record is (name,
+    start us, end us): every kernel, memcpy and memset the card ran in
+    the capture."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -189,6 +191,7 @@ def _profile_call(fn) -> tuple[float, list]:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(lead_s)
         t = time.perf_counter()
         fn()
         torch.cuda.synchronize()

@@ -65,6 +65,8 @@ def test_config_entry(name, on_cpu):
         assert entry["bytes_equal_host"] and entry["ours_x_realtime"] > 0
         assert {"e2e_s", "parse_s", "stage_dispatch_s", "drain_busy_s",
                 "overlapped_model_s", "serial_model_s"} <= set(entry)
+        # the headline's substreams share their geometry: one K1a launch
+        assert entry["mlp_chunks"] >= 1 and entry["mlp_joined_chunks"] == 0
         return
     names = ["mlp_51_96k", "mlp_51_devhuff"] if name == "mlp_51_96k" \
         else [name]
@@ -78,6 +80,11 @@ def test_config_entry(name, on_cpu):
         for track in entry["tracks"]:
             if track["codec"] == "MLP":
                 assert {"path", "tier", "redone", "drained"} <= set(track)
+        # every bench stream's substreams share their geometry
+        mlp = sum(t.get("chunks", 0) for t in entry["tracks"])
+        assert entry["mlp_chunks"] == mlp and entry["mlp_joined_chunks"] == 0
+        assert (mlp > 0) == any(t["codec"] == "MLP" and t["path"] != "general"
+                                for t in entry["tracks"])
     if name.startswith("mlp"):
         assert results[names[0]]["mode"] in ("standard", "device_huffman")
     if name == "mlp_51_96k":

@@ -15,7 +15,11 @@ import torch
 from dvda_tpu import host
 from dvda_tpu.codecs.mlp import native_engine as ne
 from dvda_tpu_torch.codecs.mlp import native_engine as port_ne
-from dvda_tpu_torch.testutil import MlpSynthConfig, synth_mlp_stream
+from dvda_tpu_torch.ops.chunk_filter import chunk_filter
+from dvda_tpu_torch.ops.chunk_lanes import chunk_lanes_reference, chunk_layout
+from dvda_tpu_torch.ops.mlp_filter import mlp_filter_blocks_tl_reference
+from dvda_tpu_torch.testutil import (MlpSynthConfig, synth_mlp_stream,
+                                     unfused_chunk_inputs)
 
 pytestmark = pytest.mark.skipif(not host.available(),
                                 reason="native host library unavailable")
@@ -205,6 +209,50 @@ def test_chunk_program_unfused_substreams():
     got = port_ne.uniform_arena_pipeline(
         *port_ne.arenas_to_device(a4, a2, a1, spec, "cpu"), spec).numpy()
     assert np.array_equal(got, ref)
+
+
+def test_unfused_chunk_inputs_match_the_hand_built_chunk():
+    """``testutil.unfused_chunk_inputs`` at its defaults is the chunk of
+    test_chunk_program_unfused_substreams (the card tests and the smoke
+    run it), and its program equals dvda_tpu's."""
+    (a4, a2, a1), spec = unfused_chunk_inputs()
+    assert [(g[0], g[1], g[2]) for g in chunk_layout(spec).groups] == [
+        (4, 10, 8), (2, 20, 16)]
+    ref = np.asarray(ne._uniform_arena_pipeline(a4, a2, a1, spec))
+    got = port_ne.uniform_arena_pipeline(
+        *port_ne.arenas_to_device(a4, a2, a1, spec, "cpu"), spec).numpy()
+    assert np.array_equal(got, ref)
+
+
+def test_chunk_program_refuses_unequal_periods():
+    """Filter launches whose periods NB0*S0 differ cannot join on the lane
+    axis (dvda_tpu's concatenation needs one period): the chunk program
+    raises before a filter runs."""
+    arenas, spec = unfused_chunk_inputs(geometry=((2, 4, 10), (4, 3, 20)))
+    before = chunk_filter.joined
+    with pytest.raises(ValueError, match="periods NB0\\*S0 differ"):
+        port_ne.uniform_arena_pipeline(
+            *port_ne.arenas_to_device(*arenas, spec, "cpu"), spec)
+    assert chunk_filter.joined == before
+
+
+def test_chunk_filter_joins_into_one_series():
+    """``chunk_filter`` on the CPU: each launch's filter output at its
+    columns of the chunk's one series, in launch order; the join
+    counted."""
+    arenas, spec = unfused_chunk_inputs()
+    a = port_ne.arenas_to_device(*arenas, spec, "cpu")
+    before = chunk_filter.joined
+    series = chunk_filter(*a, spec)
+    assert chunk_filter.joined == before + 1
+    assert tuple(series.shape) == (40, 24)
+    col = 0
+    for args in chunk_lanes_reference(*a, spec).filters:
+        out = mlp_filter_blocks_tl_reference(*args)[0]  # [NB0, S0, lanes]
+        lanes = out.shape[2]
+        assert torch.equal(series[:, col : col + lanes], out.reshape(40, -1))
+        col += lanes
+    assert col == series.shape[1]
 
 
 def test_chunk_program_refuses_other_modes():

@@ -53,12 +53,13 @@ def test_chunk_filter_reference_matches_jax(name, huffman, monkeypatch):
         residuals = [torch.from_numpy(args[0])]
     want = np.asarray(jax_filter.mlp_filter_blocks_tl(*args)[0])
     port_arenas = port_ne.arenas_to_device(*arenas, spec, "cpu")
-    (got,) = chunk_filter_reference(*port_arenas, spec, residuals)
-    assert got.dtype == torch.int32 and tuple(got.shape) == want.shape
-    assert np.array_equal(got.numpy(), want)
+    got = chunk_filter_reference(*port_arenas, spec, residuals)
+    series = want.reshape(-1, want.shape[-1])  # one launch: [period, lanes]
+    assert got.dtype == torch.int32 and tuple(got.shape) == series.shape
+    assert np.array_equal(got.numpy(), series)
     # the wrapper on the CPU runs the plain version and counts nothing
     before = chunk_filter.launches
-    (again,) = chunk_filter(*port_arenas, spec, residuals)
+    again = chunk_filter(*port_arenas, spec, residuals)
     assert chunk_filter.launches == before and torch.equal(again, got)
     parse.close()
 
@@ -85,7 +86,8 @@ def test_chunk_filter_residuals_by_mode():
     for r in res:
         r.copy_(torch.arange(r.numel(), dtype=torch.int32).view(r.shape))
     got = chunk_filter(*arenas, spec, res)
-    assert [tuple(g.shape) for g in got] == [tuple(r.shape) for r in res]
+    periods = {r.shape[0] * r.shape[1] for r in res}
+    assert tuple(got.shape) == (*periods, sum(r.shape[2] for r in res))
 
 
 @pytest.mark.parametrize("case", [c for c in CHUNK_LANES_EDGES if c[4]],

@@ -21,6 +21,7 @@ from dvda_tpu_torch.ops.c2_decrypt import (decrypt_sectors_device,
                                            decrypt_sectors_reference)
 from dvda_tpu_torch.ops.pcm_unpack import (decode_chunks_device,
                                            decode_chunks_reference)
+from dvda_tpu_torch.codecs.mlp import native_engine as ne
 from dvda_tpu_torch.codecs.mlp.native_engine import decode_native
 from dvda_tpu_torch.ops.chunk_filter import (chunk_filter,
                                              chunk_filter_reference)
@@ -30,8 +31,10 @@ from dvda_tpu_torch.ops.chunk_lanes import (chunk_lanes,
 from dvda_tpu_torch.codecs.mlp.track import decode_segment
 from dvda_tpu_torch.ops.huffman_decode import (decode_residuals_device,
                                                decode_residuals_reference)
-from dvda_tpu_torch.ops.mlp_filter import (mlp_filter_blocks_tl,
-                                           mlp_filter_blocks_tl_reference)
+from dvda_tpu_torch.ops.mlp_filter import (mlp_filter_blocks,
+                                           mlp_filter_blocks_tl,
+                                           mlp_filter_blocks_tl_reference,
+                                           mlp_filter_frames)
 from dvda_tpu_torch.ops.general_gather import (lane_pack,
                                                lane_pack_reference,
                                                series_remix,
@@ -56,11 +59,13 @@ from dvda_tpu_torch.testutil import (BPS_CODE, C2_EDGES,
                                      PcmTrackSpec, SERIES_REMIX_EDGES,
                                      build_disc,
                                      cppm_sector_mix, encrypt_sectors_batch,
-                                     filter_inputs, frame_remix_inputs,
+                                     filter_inputs, frame_channels,
+                                     frame_remix_inputs,
                                      general_inputs, huffman_inputs,
                                      huffman_edge_inputs, huffman_worst_case,
                                      narrow_stage_inputs, output_stage_inputs,
-                                     synth_mlp_stream)
+                                     synth_mlp_stream, unfused_chunk_inputs)
+from dvda_tpu_torch.utils.profiling import device_idle_share
 
 pytestmark = pytest.mark.cuda
 
@@ -100,6 +105,38 @@ def test_filter_kernel_edge_shapes(dev, shape):
     assert mlp_filter_blocks_tl.launches == before + 1
     for g, r in zip(got, mlp_filter_blocks_tl_reference(*args), strict=True):
         assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize("layout", ["lane_leading", "frame_major"])
+@pytest.mark.parametrize("shape", FILTER_EDGES,
+                         ids=lambda s: "-".join(map(str, s)))
+def test_filter_kernel_layouts(dev, shape, layout):
+    """K1 on lane-leading residuals, staged in place, writing lane-leading
+    output (``mlp_filter_blocks``; null initial states where the case has
+    none) or the frame-major channels (``mlp_filter_frames``: zero states,
+    no final states), one launch each, against the plain version behind
+    permutes at the edge shapes: lane counts off 4 and 32 (C the lanes'
+    largest divisor of at most 8), NB*S off 4 (the 4-byte copy) and 32,
+    S < 8, short blocks, resets, the extremes."""
+    B, NB, S, extreme, states = shape
+    args = [torch.from_numpy(np.asarray(a)).to(dev)
+            for a in filter_inputs(B + S, B, NB, S, extreme, states)]
+    res = args[0].permute(2, 0, 1).contiguous()
+    before = mlp_filter_blocks_tl.launches
+    if layout == "lane_leading":
+        ref = mlp_filter_blocks_tl_reference(*args)
+        got = mlp_filter_blocks(res, *args[1:8],
+                                *(args[8:] if states else (None, None)))
+        want = (ref[0].permute(2, 0, 1), ref[1], ref[2])
+    else:  # the step's filter: zero states
+        C = frame_channels(B)
+        got = (mlp_filter_frames(*(a.reshape((B // C, C) + a.shape[1:])
+                                   for a in [res] + args[1:8])),)
+        want = (mlp_filter_blocks_tl_reference(*args[:8], None, None)[0]
+                .reshape(NB * S, B // C, C).transpose(0, 1),)
+    assert mlp_filter_blocks_tl.launches == before + 1
+    for g, w in zip(got, want, strict=True):
+        assert torch.equal(g, w)
 
 
 @pytest.mark.parametrize("nbytes", [0, 2, 3])
@@ -451,9 +488,7 @@ def test_chunk_filter_kernel_edge_cases(dev, case):
     before = chunk_filter.launches
     got = chunk_filter(*a, spec, res)
     assert chunk_filter.launches == before + len(lay.groups)
-    ref = chunk_filter_reference(*a, spec, res)
-    for m, t in zip(got, ref, strict=True):
-        assert torch.equal(m, t)
+    assert torch.equal(got, chunk_filter_reference(*a, spec, res))
 
 
 @pytest.mark.parametrize("case,layout", [
@@ -481,8 +516,7 @@ def test_chunk_filter_kernel_staging(dev, case, layout):
                              dtype=torch.int32).to(dev)
                for g in chunk_layout(spec).groups]
     got = chunk_filter(*a, spec, res)
-    for m, t in zip(got, chunk_filter_reference(*a, spec, res), strict=True):
-        assert torch.equal(m, t)
+    assert torch.equal(got, chunk_filter_reference(*a, spec, res))
 
 
 def test_chunk_filter_rejects_bad_inputs(dev):
@@ -787,6 +821,41 @@ def test_decode_step_on_card(dev):
     assert torch.equal(got.cpu(), decode_step(cpu))
     step = make_sharded_step(make_mesh(1))
     assert torch.equal(step(batch), got)
+
+
+def test_decode_step_records_only_its_kernels(dev):
+    """Under the profiler a step on the card is K1 (frame-major output,
+    zero states) and K9: no other kernel, copy or fill; so is the
+    sharded step on a 1 x 1 grid, which returns K9's output itself."""
+    batch = example_batch(F=64, C=8, NB=4, S=40, seed=12, device=dev)
+    step = make_sharded_step(make_mesh(1))
+    for fn in (decode_step, step):
+        fn(batch)
+        share, detail = device_idle_share(lambda: fn(batch))
+        assert detail["reason"] is None, detail
+        assert detail["records"] == {"mlp_filter_kernel": 1,
+                                     "frame_remix_kernel": 1}, detail
+
+
+def test_unfused_chunk_on_card(dev):
+    """A chunk whose substreams differ in block geometry: one K1a launch
+    per substream, each writing its lanes at their columns of the series
+    K234 reads; under the profiler 2 x K1a + K234 and nothing else; equal
+    to the CPU's chunk program."""
+    arenas, spec = unfused_chunk_inputs()
+    a = ne.arenas_to_device(*arenas, spec, dev)
+    want = ne.uniform_arena_pipeline(*ne.arenas_to_device(*arenas, spec,
+                                                          "cpu"), spec)
+    got = ne.uniform_arena_pipeline(*a, spec)
+    assert torch.equal(got.cpu(), want)
+    before = (chunk_filter.launches, chunk_filter.joined)
+    share, detail = device_idle_share(
+        lambda: ne.uniform_arena_pipeline(*a, spec))
+    assert (chunk_filter.launches, chunk_filter.joined) == (
+        before[0] + 2, before[1] + 1)
+    assert detail["reason"] is None, detail
+    assert detail["records"] == {"mlp_filter_arena_kernel": 2,
+                                 "output_stage_kernel": 1}, detail
 
 
 def test_engine_decode_on_card(dev, tmp_path):

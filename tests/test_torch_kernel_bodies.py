@@ -47,6 +47,7 @@ from dvda_tpu_torch.testutil import (C2_EDGES, CHUNK_LANES_EDGES,
                                      MlpSynthConfig, MlpTrackSpec,
                                      PcmTrackSpec, build_disc,
                                      cppm_sector_mix, filter_inputs,
+                                     frame_channels,
                                      frame_remix_inputs,
                                      frame_remix_offsets,
                                      general_inputs, huffman_inputs,
@@ -71,8 +72,8 @@ def harness(tmp_path_factory):
                    check=True, capture_output=True)
     lib = ctypes.CDLL(so)
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.cpu_mlp_filter.restype = None
-    lib.cpu_mlp_filter.argtypes = [p] * 13 + [i, i, i]
+    lib.cpu_mlp_filter.restype = i
+    lib.cpu_mlp_filter.argtypes = [p] * 13 + [i] * 5
     lib.cpu_output_stage.restype = None
     lib.cpu_output_stage.argtypes = [p] * 12 + [i] * 7
     lib.cpu_output_stage_narrow.restype = None
@@ -85,7 +86,7 @@ def harness(tmp_path_factory):
     lib.cpu_chunk_lanes.argtypes = [p, i64] + [p] * 4
     lib.cpu_chunk_filter.restype = i
     lib.cpu_chunk_filter.argtypes = ([p, i64] + [p] * 3 + [i64] * 3
-                                     + [p] * 2 + [i] * 3)
+                                     + [p] * 2 + [i] * 4)
     lib.cpu_pcm_unpack.restype = None
     lib.cpu_pcm_unpack.argtypes = [p, i64, i, i, i, i, p, p]
     lib.cpu_c2_decrypt.restype = None
@@ -120,8 +121,8 @@ def test_filter_body_matches_plain(harness, seed, shape, extreme, states):
     is_ = np.empty((B, 8), np.int32)
     irst = args[5].astype(np.uint8)
     c_args = list(args[:5]) + [irst] + list(args[6:])
-    harness.cpu_mlp_filter(*[_ptr(a) for a in c_args], _ptr(out), _ptr(fs),
-                           _ptr(is_), B, NB, S)
+    assert harness.cpu_mlp_filter(*[_ptr(a) for a in c_args], _ptr(out),
+                                  _ptr(fs), _ptr(is_), B, NB, S, 0, 1) == 0
     ref = mlp_filter_blocks_tl_reference(*map(torch.from_numpy, args))
     assert np.array_equal(out, ref[0].numpy())
     assert np.array_equal(fs, ref[1].numpy())
@@ -140,11 +141,61 @@ def test_filter_body_edge_shapes(harness, shape):
     fs = np.empty((B, 8), np.int32)
     is_ = np.empty((B, 8), np.int32)
     c_args = list(args[:5]) + [args[5].astype(np.uint8)] + list(args[6:])
-    harness.cpu_mlp_filter(*[_ptr(a) for a in c_args], _ptr(out), _ptr(fs),
-                           _ptr(is_), B, NB, S)
+    assert harness.cpu_mlp_filter(*[_ptr(a) for a in c_args], _ptr(out),
+                                  _ptr(fs), _ptr(is_), B, NB, S, 0, 1) == 0
     ref = mlp_filter_blocks_tl_reference(*map(torch.from_numpy, args))
     for got, want in zip((out, fs, is_), ref, strict=True):
         assert np.array_equal(got, want.numpy())
+
+
+@pytest.mark.parametrize("layout", ["lane_leading", "frame_major"])
+@pytest.mark.parametrize("shape", FILTER_EDGES,
+                         ids=lambda s: "-".join(map(str, s)))
+def test_filter_body_layouts(harness, shape, layout):
+    """K1's body on lane-leading residuals (MlpFilterRow over the
+    lane-major tile) writing the frame-major channels through the
+    kernel's writer: at C = 1 the lane-leading output, with final states
+    (``mlp_filter_blocks``), at C the lanes' largest divisor of at most 8
+    with none (``mlp_filter_frames``), at the edge shapes: lane counts
+    off 4 and 32, NB*S off 4 and 32, S < 8, short blocks, resets, the
+    extremes.  Initial states null (zero) where the case has none."""
+    B, NB, S, extreme, states = shape
+    args = filter_inputs(B + S, B, NB, S, extreme, states)
+    res = np.ascontiguousarray(args[0].transpose(2, 0, 1))  # [B, NB, S]
+    lane_leading = layout == "lane_leading"
+    C = 1 if lane_leading else frame_channels(B)
+    out = np.full((B // C, NB * S, C), 0x55555555, np.int32)
+    fs = np.full((B, 8), 0x55555555, np.int32)
+    is_ = fs.copy()
+    state0 = [_ptr(a) for a in args[8:]] if states else [None, None]
+    finals = [_ptr(fs), _ptr(is_)] if lane_leading else [None, None]
+    c_args = [res] + list(args[1:5]) + [args[5].astype(np.uint8)] + list(
+        args[6:8])
+    assert harness.cpu_mlp_filter(*[_ptr(a) for a in c_args], *state0,
+                                  _ptr(out), *finals, B, NB, S, 1, C) == 0
+    ref = mlp_filter_blocks_tl_reference(*map(torch.from_numpy, args))
+    want = ref[0].numpy()                                    # [NB, S, B]
+    assert np.array_equal(out, want.reshape(NB * S, B // C, C)
+                          .transpose(1, 0, 2))
+    if lane_leading:
+        assert np.array_equal(out.reshape(B, NB, S), want.transpose(2, 0, 1))
+        assert np.array_equal(fs, ref[1].numpy())
+        assert np.array_equal(is_, ref[2].numpy())
+    else:
+        assert (fs == 0x55555555).all() and (is_ == 0x55555555).all()
+
+
+def test_filter_body_refuses_layouts(harness):
+    """The entry's refusals: no third layout, and the channels C of the
+    lane-leading layout must divide the lanes."""
+    B, NB, S = 12, 2, 8
+    args = filter_inputs(0, B, NB, S)
+    c_args = list(args[:5]) + [args[5].astype(np.uint8)] + list(args[6:])
+    out = np.empty((B, NB, S), np.int32)
+    ptrs = [_ptr(a) for a in c_args] + [_ptr(out), None, None]
+    assert harness.cpu_mlp_filter(*ptrs, B, NB, S, 2, 1) == -1
+    assert harness.cpu_mlp_filter(*ptrs, B, NB, S, 1, 5) == -1
+    assert harness.cpu_mlp_filter(*ptrs, B, NB, S, 1, 0) == -1
 
 
 @pytest.mark.parametrize("nbytes", [0, 2, 3])
@@ -609,9 +660,9 @@ def test_general_path_body_matches_plain(harness, extreme, n_ch):
         NB, S, B = res_tl.shape
         out = np.empty((NB, S, B), np.int32)
         fs, is_ = np.empty((B, 8), np.int32), np.empty((B, 8), np.int32)
-        harness.cpu_mlp_filter(*[_ptr(a) for a in (
+        assert harness.cpu_mlp_filter(*[_ptr(a) for a in (
             res_tl, fir, iir, shift, quant, reset.view(np.uint8), init, blen,
-            st, st, out, fs, is_)], B, NB, S)
+            st, st, out, fs, is_)], B, NB, S, 0, 1) == 0
         outs.append((out, np.ascontiguousarray(u["series_idx"]),
                      u["shift"].shape[1]))
     (o0, i0, c0), (o1, i1, c1) = (outs + [(outs[0][0], outs[0][1], 0)])[:2]
@@ -730,27 +781,35 @@ def test_chunk_lanes_body_edge_cases(harness, case):
 
 def _chunk_filter_body(harness, arenas, spec, residuals=None):
     """K1a's body per filter launch (ops/chunk_lanes.py's group
-    descriptors; outputs poisoned), and the entry's refusals."""
+    descriptors), each writing its lanes at their columns of one poisoned
+    series whose rows are one column wider than the chunk's lanes (the
+    chunk program's join, rows ``ldo`` apart), and the entry's refusals;
+    returns the series but that column."""
     lay = chunk_layout(spec)
     a4, a2, a1 = arenas
-    outs = []
+    ldo = sum(g[2] for g in lay.groups) + 1
+    series = np.full((lay.groups[0][0] * lay.groups[0][1], ldo), 0x55555555,
+                     np.int32)
+    col = 0
     for g, (desc, (NB0, S0, lanes, _)) in enumerate(zip(lay.group_descs,
                                                         lay.groups)):
-        out = np.full((NB0, S0, lanes), 0x55555555, np.int32)
         res = None if residuals is None else _ptr(residuals[g])
 
-        def run(n_words=desc.size, B=lanes, S=S0, res=res):
+        def run(n_words=desc.size, B=lanes, S=S0, res=res, ldo=ldo):
             return harness.cpu_chunk_filter(
                 _ptr(desc), n_words, _ptr(a4), _ptr(a2), _ptr(a1), a4.size,
-                a2.size, a1.size, res, _ptr(out), B, NB0, S)
+                a2.size, a1.size, res, series.ctypes.data + 4 * col, B, NB0,
+                S, ldo)
 
         assert run(n_words=desc.size - 1) == -1
         assert run(B=lanes + 1) == -1 and run(S=S0 + 1) == -1
+        assert run(ldo=lanes - 1) == -1
         if residuals is not None:  # K5's residuals: not in the arenas
             assert run(res=None) == -1
         assert run() == 0
-        outs.append(out)
-    return lay, outs
+        col += lanes
+    assert (series[:, -1] == 0x55555555).all()
+    return lay, series[:, :-1]
 
 
 @pytest.mark.parametrize("case", CHUNK_LANES_EDGES, ids=lambda c: c[0])
@@ -775,8 +834,7 @@ def test_chunk_filter_body_edge_cases(harness, case):
         *map(torch.from_numpy, arenas), spec,
         None if residuals is None else list(map(torch.from_numpy,
                                                 residuals)))
-    for g, (m, t) in enumerate(zip(got, ref, strict=True)):
-        assert m.shape == tuple(t.shape) and np.array_equal(m, t.numpy()), g
+    assert got.shape == tuple(ref.shape) and np.array_equal(got, ref.numpy())
 
 
 
@@ -806,5 +864,4 @@ def test_chunk_filter_body_staging(harness, case, layout):
         *(torch.from_numpy(np.ascontiguousarray(a)) for a in arenas), spec,
         None if residuals is None else list(map(torch.from_numpy,
                                                 residuals)))
-    for g, (m, t) in enumerate(zip(got, ref, strict=True)):
-        assert np.array_equal(m, t.numpy()), g
+    assert np.array_equal(got, ref.numpy())

@@ -100,6 +100,26 @@ residuals that K10 and K5 write, K10 timed alone too), then the chunk
 program here (standard: K1a and K234n; device Huffman: K10, 2 x K5,
 K1a, K234n) against PARENT's, both modes, parent, change, change,
 parent.
+
+    python3 tools/torch_timing_check.py step PARENT
+
+times the fused decode step of this checkout against the one at PARENT
+(both packages imported, PARENT's as ``parent_dvda_tpu_torch``, on the
+same ``example_batch`` at the smoke's ``STEP``): ``decode_step``, its
+filter half, the lane-leading entry ``mlp_filter_blocks`` and the
+time-leading K1, each as card time over 20 calls queued behind a spin
+and CUDA events over 20 calls back to back, in the order parent,
+change, change, parent.  Each pair's outputs must be equal.
+
+    python3 tools/torch_timing_check.py profiler
+
+probes how ``torch.profiler`` keeps the records of short captures:
+two groups of captures of one K1 launch (the step batch,
+``dvda_tpu_torch.utils.profiling._profile_call``), the first at the
+process's start and the second after 30 s without a capture; in each,
+8 captures per lead (the host's sleep between the capture's start and
+the launch: 0, 1, 2 and 3 s).  It prints per group
+and lead how many captures held the launch's one K1 record.
 """
 
 from __future__ import annotations
@@ -378,8 +398,10 @@ def _k1_parent(parent: str):
                         + [ctypes.c_int] * 3 + [ctypes.c_void_p])
 
 
-def _k1_launcher(fn, args):
-    """(a call of ``fn`` on the ten K1 arguments ``args``, its outputs)."""
+def _k1_launcher(fn, args, layout=()):
+    """(a call of ``fn`` on the ten time-leading K1 arguments ``args``,
+    its outputs); ``layout``: the trailing (layout, C) arguments of the
+    C entry since it took layouts, () for an entry before that."""
     import torch
 
     NB, S, B = args[0].shape
@@ -389,7 +411,7 @@ def _k1_launcher(fn, args):
     stream = torch.cuda.current_stream().cuda_stream
 
     def call():
-        rc = fn(*ptrs, B, NB, S, stream)
+        rc = fn(*ptrs, B, NB, S, *layout, stream)
         if rc:
             raise RuntimeError(f"dvda_mlp_filter: CUDA error {rc}")
 
@@ -467,7 +489,8 @@ def _k1_against(smoke, parent: str) -> int:
                       "iir_init", "block_len")), zeros, zeros]),
         ("churn substream", list(_churn_k1_args(smoke, dev)))]
     for label, args in shapes:
-        calls = {k: _k1_launcher(fn, args) for k, fn in fns.items()}
+        calls = {"parent": _k1_launcher(fns["parent"], args),
+                 "change": _k1_launcher(fns["change"], args, (0, 1))}
         for call, _ in calls.values():
             call()
         torch.cuda.synchronize()
@@ -831,21 +854,22 @@ def _k9_against(smoke, parent: str) -> int:
     return 0
 
 
-def _parent_engine(parent: str):
-    """The chunk program module of the port in the checkout at
-    ``parent``, its package imported as ``parent_dvda_tpu_torch``."""
+def _parent_module(parent: str, name: str):
+    """The module ``name`` (e.g. ``parallel.step``) of the port in the
+    checkout at ``parent``, its package imported as
+    ``parent_dvda_tpu_torch``."""
     import importlib
     import importlib.util
 
-    pkg = os.path.join(os.path.abspath(parent), "dvda_tpu_torch")
-    spec = importlib.util.spec_from_file_location(
-        "parent_dvda_tpu_torch", os.path.join(pkg, "__init__.py"),
-        submodule_search_locations=[pkg])
-    mod = importlib.util.module_from_spec(spec)
-    sys.modules[spec.name] = mod
-    spec.loader.exec_module(mod)
-    return importlib.import_module(
-        "parent_dvda_tpu_torch.codecs.mlp.native_engine")
+    if "parent_dvda_tpu_torch" not in sys.modules:
+        pkg = os.path.join(os.path.abspath(parent), "dvda_tpu_torch")
+        spec = importlib.util.spec_from_file_location(
+            "parent_dvda_tpu_torch", os.path.join(pkg, "__init__.py"),
+            submodule_search_locations=[pkg])
+        mod = importlib.util.module_from_spec(spec)
+        sys.modules[spec.name] = mod
+        spec.loader.exec_module(mod)
+    return importlib.import_module(f"parent_dvda_tpu_torch.{name}")
 
 
 def _k10_alone(smoke, arenas, spec, words, huffman: bool) -> None:
@@ -912,7 +936,7 @@ def _chunk_program_against(smoke, parent: str, alone) -> int:
     cfg = MlpSynthConfig(**dict(smoke.HEADLINE,
                                 n_frames=8 * smoke.CHUNK + 8))
     stream = synth_mlp_stream(cfg)
-    parent_ne = _parent_engine(parent)
+    parent_ne = _parent_module(parent, "codecs.mlp.native_engine")
     for huffman in (False, True):
         mode = "device Huffman" if huffman else "standard"
         arenas, spec, words = smoke._headline_chunk(stream, dev, huffman)
@@ -949,6 +973,98 @@ def _k1a_against(smoke, parent: str) -> int:
     return _chunk_program_against(smoke, parent, _k1a_alone)
 
 
+def _step_against(smoke, parent: str) -> int:
+    """``decode_step`` and K1 by layout at the step batch, here against
+    the checkout at ``parent`` (see the module note)."""
+    import torch
+
+    from dvda_tpu_torch.ops import mlp_filter as mf
+    from dvda_tpu_torch.parallel import step
+
+    pstep = _parent_module(parent, "parallel.step")
+    pmf = _parent_module(parent, "ops.mlp_filter")
+    dev = torch.device("cuda", 0)
+    b = step.example_batch(device=dev, **smoke.STEP)
+    F, C, NB, S = b.residuals.shape
+    lanes = {k: getattr(b, k) for k in step._LANE_FIELDS}
+    flat = [x.reshape((F * C,) + tuple(x.shape[2:])) for x in lanes.values()]
+    zeros = flat[0].new_zeros((F * C, 8))
+    tl = (flat[0].permute(1, 2, 0).contiguous(), *flat[1:], zeros, zeros)
+    pairs = {
+        "decode_step": (lambda: pstep.decode_step(b),
+                        lambda: step.decode_step(b)),
+        "its filter half (parent: lane-leading K1 entry + transpose, "
+        "change: frame-major K1)": (lambda: pstep._filtered(lanes),
+                                     lambda: step._filtered(lanes)),
+        "the lane-leading entry mlp_filter_blocks (parent: 2 permutes + "
+        "K1, change: lane-leading K1)": (
+            lambda: pmf.mlp_filter_blocks(*flat, zeros, zeros),
+            lambda: mf.mlp_filter_blocks(*flat)),
+        "time-leading K1": (lambda: pmf.mlp_filter_blocks_tl(*tl),
+                            lambda: mf.mlp_filter_blocks_tl(*tl)),
+    }
+    for label, (p_fn, c_fn) in pairs.items():
+        outs = [fn() for fn in (p_fn, c_fn)]
+        torch.cuda.synchronize()
+        outs = [o if isinstance(o, tuple) else (o,) for o in outs]
+        if not all(torch.equal(p, c) for p, c in zip(*outs, strict=True)):
+            print(f"step, {label}: the parent's and the change's outputs "
+                  "differ", flush=True)
+            return 1
+        ms = {"parent": [], "change": []}
+        for k in ("parent", "change", "change", "parent"):
+            ms[k].append(smoke._times(p_fn if k == "parent" else c_fn, 20))
+        card = {k: " / ".join(f"{c:.4f}" for c, _ in v)
+                for k, v in ms.items()}
+        ev = {k: " / ".join(f"{e:.4f}" for _, e in v) for k, v in ms.items()}
+        print(f"step batch F={F} C={C} NB={NB} S={S}, {label}: parent "
+              f"{card['parent']} ms, change {card['change']} ms on the card "
+              f"(20 calls queued); back to back over 20 calls parent "
+              f"{ev['parent']} ms, change {ev['change']} ms (parent, "
+              "change, change, parent); outputs equal", flush=True)
+    return 0
+
+
+def _profiler_probe(smoke, smi: str) -> int:
+    """The ``profiler`` mode (see the module note)."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from dvda_tpu_torch.ops.mlp_filter import mlp_filter_blocks_tl
+    from dvda_tpu_torch.testutil import filter_inputs
+    from dvda_tpu_torch.utils.profiling import _profile_call
+
+    dev = torch.device("cuda", 0)
+    step = smoke.STEP
+    args = [torch.from_numpy(np.asarray(a)).to(dev) for a in filter_inputs(
+        0, step["F"] * step["C"], step["NB"], step["S"])]
+    mlp_filter_blocks_tl(*args)  # the build, outside every capture
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+
+    def group(label: str) -> None:
+        whole = {}
+        for lead in (0.0, 1.0, 2.0, 3.0):
+            whole[lead] = 0
+            for _ in range(8):
+                _, records = _profile_call(
+                    lambda: mlp_filter_blocks_tl(*args), lead)
+                names = [n for n, _, _ in records]
+                whole[lead] += (len(names) == 1
+                                and "mlp_filter_kernel" in names[0])
+        print(f"[profiler] {smi}; "
+              f"{time.perf_counter() - start:.1f} s into the probe, "
+              f"{label}: captures of 8 that held the launch's one K1 "
+              f"record, by the lead in s {whole}", flush=True)
+
+    group("first captures")
+    time.sleep(30)
+    group("after 30 s without a capture")
+    return 0
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -962,10 +1078,12 @@ def main() -> int:
     if sys.argv[1:] == ["chains"]:
         smoke.phase_device()
         return _chains(smoke)
+    if sys.argv[1:] == ["profiler"]:
+        return _profiler_probe(smoke, smoke.phase_device()[1])
     against = {"k1": _k1_against, "k7": _k7_against, "k8": _k8_against,
                "k234n": _k234n_against, "k6b": _k6b_against,
                "k9": _k9_against, "k10": _k10_against,
-               "k1a": _k1a_against}
+               "k1a": _k1a_against, "step": _step_against}
     if sys.argv[1:2] and sys.argv[1] in against and len(sys.argv) == 3:
         smoke.phase_device()
         return against[sys.argv[1]](smoke, sys.argv[2])
