@@ -396,7 +396,8 @@ class TrackReader:
         bps = self.bits_per_sample
         out = self._pcm_on_device(chunks, bps, self.channel_count, bps // 8)
         self._cursor = self._packed_frames = 2 * chunks.shape[0]
-        return out.tobytes()
+        with global_timer.stage("reader/bytes"):
+            return out.tobytes()
 
     # -- pull API (dvda_read, dvd-audio.c:751-795) --------------------------
 
@@ -473,7 +474,8 @@ class TrackReader:
                 out = self._decode(want_packed=True)
                 if out.dtype == np.uint8:
                     self._cursor = self._packed_frames = out.shape[0]
-                    return out.tobytes()
+                    with global_timer.stage("reader/bytes"):
+                        return out.tobytes()
                 self.__dict__["_decoded"] = out  # general path, or empty
         return pack_samples_le(self.read_all(), self.bits_per_sample)
 

@@ -78,6 +78,8 @@ __all__ = ["decode_native", "decode_host_complete", "uniform_arena_pipeline",
 #: sentinel: the pipelined driver met a structure it does not handle —
 #: decode the finished parse whole instead (dvda_tpu's ``_ABANDON``)
 _ABANDON = object()
+#: sentinel: a section's geometry needs more of the stream parsed
+_PARSE_MORE = object()
 
 
 def _frame_cut(frame_end: np.ndarray, boundaries: np.ndarray, probe_end: int) -> int:
@@ -1002,12 +1004,25 @@ def _unpack_raw(raw, T, out_ch, pack_bits, want_packed):
 
 # ------------------------------------------------------------ the driver
 
-def _discover_geometry(st, parse_step, f0, blk0s):
+def _section_geometry(st, parse_step, f0, blk0s):
+    """:func:`_discover_geometry` of the section at ``f0`` / ``blk0s``,
+    asked again after each parse it needs: the parse is timed by
+    ``mlp/native-parse`` alone, the rest by ``mlp/geometry``."""
+    while True:
+        with global_timer.stage("mlp/geometry"):
+            geo = _discover_geometry(st, f0, blk0s)
+        if geo is not _PARSE_MORE:
+            return geo
+        parse_step(st["v"].F)  # double the coverage
+
+
+def _discover_geometry(st, f0, blk0s):
     """Geometry of the section starting at frame ``f0`` / blocks ``blk0s``:
     frame length, per-substream block size and chain length (distance to
     the next uncoupled restart — or the remaining blocks for a tail
-    section), parsing further as needed.  ``None`` when the substream
-    periods disagree or the frame length does not divide the period."""
+    section).  ``None`` when the substream periods disagree or the frame
+    length does not divide the period; ``_PARSE_MORE`` when a chain runs
+    past the frames parsed so far and the parse has more."""
     v = st["v"]
     L0 = int(v.frame_len[f0])
     if L0 <= 0:
@@ -1015,21 +1030,19 @@ def _discover_geometry(st, parse_step, f0, blk0s):
     struct = []
     for s in range(v.substream_count):
         B = blk0s[s]
-        if st["v"].sub[s]["len"].shape[0] <= B:
+        sub = v.sub[s]
+        if sub["len"].shape[0] <= B:
             return None
-        S0 = int(st["v"].sub[s]["len"][B])
-        NB0 = None
-        while NB0 is None:
-            sub = st["v"].sub[s]
-            restart = sub["restart"][B + 1 :]
-            coupled = sub["fir_any"][B + 1 : B + 1 + restart.shape[0]] != 0
-            fresh = np.nonzero(restart & ~coupled)[0]
-            if fresh.size:
-                NB0 = int(fresh[0]) + 1
-            elif not st["more"]:
-                NB0 = sub["len"].shape[0] - B  # single-chain tail section
-            else:
-                parse_step(st["v"].F)  # double the coverage
+        S0 = int(sub["len"][B])
+        restart = sub["restart"][B + 1 :]
+        coupled = sub["fir_any"][B + 1 : B + 1 + restart.shape[0]] != 0
+        fresh = np.nonzero(restart & ~coupled)[0]
+        if fresh.size:
+            NB0 = int(fresh[0]) + 1
+        elif not st["more"]:
+            NB0 = sub["len"].shape[0] - B  # single-chain tail section
+        else:
+            return _PARSE_MORE
         if NB0 <= 0:
             return None
         struct.append((s, S0, NB0))
@@ -1128,9 +1141,10 @@ def decode_native(stream: bytes, boundaries: np.ndarray, probe_end: int,
                            "parser")
     info = info if info is not None else {}
     huffman = bool(cfg.device_huffman)
-    inc = host.parse_mlp_stream_begin(
-        stream, skip_values=huffman, threads=cfg.resolved_parse_threads(),
-        sub_every=cfg.resolved_huffman_split() if huffman else 0)
+    with global_timer.stage("mlp/decode-setup"):
+        inc = host.parse_mlp_stream_begin(
+            stream, skip_values=huffman, threads=cfg.resolved_parse_threads(),
+            sub_every=cfg.resolved_huffman_split() if huffman else 0)
     try:
         res = _decode_pipelined(inc, stream, boundaries, probe_end,
                                 parameters, want_packed, cfg, device, info)
@@ -1138,9 +1152,10 @@ def decode_native(stream: bytes, boundaries: np.ndarray, probe_end: int,
             return res
         if huffman:
             # the general path needs residual values: parse again
-            inc.close()
-            inc = host.parse_mlp_stream_begin(
-                stream, threads=cfg.resolved_parse_threads())
+            with global_timer.stage("mlp/decode-setup"):
+                inc.close()
+                inc = host.parse_mlp_stream_begin(
+                    stream, threads=cfg.resolved_parse_threads())
         with global_timer.stage("mlp/native-parse"):
             inc.step(0)  # finish the walk; no bytes are re-parsed
         parse = inc.view()
@@ -1150,7 +1165,8 @@ def decode_native(stream: bytes, boundaries: np.ndarray, probe_end: int,
         return _decode_parsed(parse, boundaries, probe_end, parameters,
                               want_packed, cfg, device, info)
     finally:
-        inc.close()  # frees the zero-copy parse buffers
+        with global_timer.stage("mlp/decode-setup"):
+            inc.close()  # frees the zero-copy parse buffers
 
 
 def _decode_pipelined(inc, stream, boundaries, probe_end, parameters,
@@ -1210,7 +1226,7 @@ def _pipelined(st, inc, stream, boundaries, probe_end, parameters,
         key = (f0, tuple(blk0s))
         n_sections += 1
         geo = (None if key == prev_key or n_sections > 8  # no progress;
-               else _discover_geometry(st, parse_step, f0, blk0s))  # churn
+               else _section_geometry(st, parse_step, f0, blk0s))  # churn
         if geo is None:
             if drain is not None:
                 drain.discard()  # chunks already pushed are dropped
@@ -1230,8 +1246,9 @@ def _pipelined(st, inc, stream, boundaries, probe_end, parameters,
             want = min(c0 + CHUNK, avail)
             if want <= c0:
                 break  # section exhausted (a tail opens a new section)
-            n_ok = _verified_chains(v, struct, L0, fpc, f0, blk0s, c0, want,
-                                    not st["more"])
+            with global_timer.stage("mlp/geometry"):
+                n_ok = _verified_chains(v, struct, L0, fpc, f0, blk0s, c0,
+                                        want, not st["more"])
             if n_ok == 0:
                 break  # geometry broke at c0: close the section here
             c1 = c0 + n_ok
@@ -1239,10 +1256,11 @@ def _pipelined(st, inc, stream, boundaries, probe_end, parameters,
                 # size the output from the parse so far: samples per
                 # stream byte, plus one chunk of slack
                 per_byte = v.T / max(1, int(v.frame_end[v.F - 1]))
-                drain = st["drain"] = _drain_for(
-                    device, out_ch, pack_bits,
-                    int(per_byte * len(stream) * 1.125) + CHUNK * period,
-                    tier0, cfg.drain_thread)
+                with global_timer.stage("mlp/decode-setup"):
+                    drain = st["drain"] = _drain_for(
+                        device, out_ch, pack_bits,
+                        int(per_byte * len(stream) * 1.125) + CHUNK * period,
+                        tier0, cfg.drain_thread)
             dev = devices[ci % len(devices)]  # chunk round-robin
             with global_timer.stage("mlp/arena-build"):
                 subs_info = [(v.sub[s], blk0s[s], S0, NB0, suboffs[s])
@@ -1258,7 +1276,8 @@ def _pipelined(st, inc, stream, boundaries, probe_end, parameters,
                     *arenas_to_device(a4, a2, a1, spec, dev), spec,
                     words.on(dev) if words is not None else None)
                 drain.push(out, n_ok * period, tier, redo)
-            drain.throttle()
+            with global_timer.stage("mlp/throttle"):
+                drain.throttle()
             ci += 1
             c0 = c1
             if c1 < want:  # verification truncated: geometry broke
@@ -1410,9 +1429,10 @@ def _try_uniform(parse, F, frame_len, T, out_ch, bits_per_sample,
     fpc = period // L0
     mat_mm = 0
     devices = _decode_devices(cfg) or [device]
-    drain = _drain_for(device, out_ch, pack_bits, n_chains * period,
-                       _narrow_tier0(pack_bits, out_ch, cfg),
-                       cfg.drain_thread)
+    with global_timer.stage("mlp/decode-setup"):
+        drain = _drain_for(device, out_ch, pack_bits, n_chains * period,
+                           _narrow_tier0(pack_bits, out_ch, cfg),
+                           cfg.drain_thread)
     ci = 0
     for ci, c0 in enumerate(range(0, n_chains, CHUNK), 1):
         c1 = min(c0 + CHUNK, n_chains)
@@ -1427,7 +1447,8 @@ def _try_uniform(parse, F, frame_len, T, out_ch, bits_per_sample,
             out, tier, redo = _chunk_program(*arenas_to_device(
                 a4, a2, a1, spec, devices[(ci - 1) % len(devices)]), spec)
             drain.push(out, (c1 - c0) * period, tier, redo)
-        drain.throttle()
+        with global_timer.stage("mlp/throttle"):
+            drain.throttle()
     info["chunks"] = ci
     with global_timer.stage("mlp/device+d2h"):
         raw = drain.finish(T)
@@ -1446,7 +1467,8 @@ def decode_host_complete(stream: bytes, boundaries: np.ndarray,
     card's bytes against it)."""
     if not host.available():
         raise RuntimeError("the native host library could not be built")
-    inc = host.parse_mlp_stream_begin(stream, threads=threads)
+    with global_timer.stage("mlp/decode-setup"):
+        inc = host.parse_mlp_stream_begin(stream, threads=threads)
     try:
         with global_timer.stage("mlp/native-parse"):
             inc.step(0)
@@ -1464,4 +1486,5 @@ def decode_host_complete(stream: bytes, boundaries: np.ndarray,
             return parse.reconstruct(F, out_ch, pb, _wave_perm(parse, out_ch),
                                      threads=threads)
     finally:
-        inc.close()
+        with global_timer.stage("mlp/decode-setup"):
+            inc.close()

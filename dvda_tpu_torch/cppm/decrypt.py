@@ -16,6 +16,7 @@ import torch
 
 from ..config import DecodeConfig, default_config
 from ..ops.c2_decrypt import SECTOR_SIZE, decrypt_sectors_device
+from ..utils.profiling import global_timer
 from .c2 import c2_g
 from .mkb import load_mkb, process_mkb
 
@@ -176,19 +177,23 @@ class CppmDecryptor:
         (unencrypted sectors pass through, their CCI bytes aside).  On CUDA:
         pinned copy, h2d, K7, d2h, synchronise — the host demux reads the
         result at once."""
-        sectors = np.ascontiguousarray(sectors, dtype=np.uint8)
-        dev = self._device()
-        if sectors.shape[0] == 0:
-            return sectors.copy()
-        if dev.type != "cuda":
-            out = torch.from_numpy(sectors.copy())
-            decrypt_sectors_device(out, self.k_au, self.preserve_cci)
-            return out.numpy()
-        host, buf = self._buffers(sectors.shape[0], dev)
-        host.numpy()[...] = sectors
-        with torch.cuda.device(dev):
-            buf.copy_(host, non_blocking=True)
-            decrypt_sectors_device(buf, self.k_au, self.preserve_cci)
-            host.copy_(buf, non_blocking=True)
-            torch.cuda.current_stream(dev).synchronize()
-        return host.numpy().copy()
+        with global_timer.stage("cppm/decrypt"):
+            sectors = np.ascontiguousarray(sectors, dtype=np.uint8)
+            dev = self._device()
+            if sectors.shape[0] == 0:
+                return sectors.copy()
+            if dev.type != "cuda":
+                with global_timer.stage("cppm/copy"):
+                    out = torch.from_numpy(sectors.copy())
+                decrypt_sectors_device(out, self.k_au, self.preserve_cci)
+                return out.numpy()
+            host, buf = self._buffers(sectors.shape[0], dev)
+            with global_timer.stage("cppm/copy"):
+                host.numpy()[...] = sectors
+            with torch.cuda.device(dev):
+                buf.copy_(host, non_blocking=True)
+                decrypt_sectors_device(buf, self.k_au, self.preserve_cci)
+                host.copy_(buf, non_blocking=True)
+                torch.cuda.current_stream(dev).synchronize()
+            with global_timer.stage("cppm/copy"):
+                return host.numpy().copy()

@@ -1,17 +1,15 @@
 """Tracing & profiling — the observability subsystem.
 
-The port's copy of dvda_tpu/utils/profiling.py, with ``trace`` on
-``torch.profiler`` in place of the JAX profiler, and the card-side timers
-the port's smoke run, timing tool and bench share.  The reference has no
-instrumentation beyond a per-byte callback usable as a byte counter
-(SURVEY §5: bitstream.h:350-375, bitstream.c:3982).  The rebuild
-provides:
+The port's copy of dvda_tpu/utils/profiling.py, with its stages on
+``torch.profiler``'s clock, and the card-side timers the port's smoke
+run, timing tool and bench share.  The reference has no instrumentation
+beyond a per-byte callback usable as a byte counter (SURVEY §5:
+bitstream.h:350-375, bitstream.c:3982).  The rebuild provides:
 
 * :class:`StageTimer` — wall-clock accounting per pipeline stage (parse,
-  assembly, device, transfers), used by the bench and exposed on decoders;
-* :class:`ByteCounter` — the reference's byte-accounting callback analog
-  for host-side stream taps;
-* :func:`trace` — a named region in a ``torch.profiler`` capture;
+  assembly, device, transfers), used by the bench and exposed on
+  decoders; while a ``torch.profiler`` capture runs, each stage is also a
+  ``record_function`` range of its name, so a trace names the host work;
 * :func:`device_ms` / :func:`events_ms` — CUDA-event timers of a call: its
   card time with every call queued ahead, and its time back to back (which
   holds the host's time between launches);
@@ -26,13 +24,15 @@ import contextlib
 import time
 from collections import defaultdict
 
-__all__ = ["StageTimer", "ByteCounter", "global_timer", "trace", "device_ms",
-           "events_ms", "device_idle_share", "kernel_counters",
-           "kernel_launches"]
+from torch._C._autograd import _profiler_enabled
+from torch.profiler import record_function
+
+__all__ = ["StageTimer", "global_timer", "device_ms", "events_ms",
+           "device_idle_share", "kernel_counters", "kernel_launches"]
 
 
 class StageTimer:
-    """Accumulates wall-clock per named stage; printable summary."""
+    """Accumulates wall-clock seconds and entries per named stage."""
 
     def __init__(self):
         self.totals: dict[str, float] = defaultdict(float)
@@ -40,12 +40,23 @@ class StageTimer:
 
     @contextlib.contextmanager
     def stage(self, name: str):
+        """Time the block under ``name``.  While a ``torch.profiler``
+        capture runs, the block is also a ``record_function`` range of
+        that name, opened before the clock starts and closed after it
+        stops; without one, the check costs a fraction of a microsecond
+        where the range would cost some ten."""
+        rf = None
+        if _profiler_enabled():  # a capture is running
+            rf = record_function(name)
+            rf.__enter__()
         t0 = time.perf_counter()
         try:
             yield
         finally:
             self.totals[name] += time.perf_counter() - t0
             self.counts[name] += 1
+            if rf is not None:
+                rf.__exit__(None, None, None)
 
     def add(self, name: str, seconds: float) -> None:
         self.totals[name] += seconds
@@ -55,40 +66,9 @@ class StageTimer:
         self.totals.clear()
         self.counts.clear()
 
-    def summary(self) -> str:
-        if not self.totals:
-            return "(no stages recorded)"
-        width = max(len(k) for k in self.totals)
-        lines = [
-            f"{k:<{width}}  {v * 1000:9.1f} ms  ×{self.counts[k]}"
-            for k, v in sorted(self.totals.items(), key=lambda kv: -kv[1])
-        ]
-        return "\n".join(lines)
-
 
 #: process-wide timer used by the decoders when none is injected
 global_timer = StageTimer()
-
-
-@contextlib.contextmanager
-def trace(name: str):
-    """Annotate a region for ``torch.profiler`` (``record_function``; it
-    records nothing without a capture)."""
-    from torch.profiler import record_function
-
-    with record_function(name):
-        yield
-
-
-class ByteCounter:
-    """Counts bytes flowing through a host-side tap (reference analog:
-    byte_counter, bitstream.c:3982)."""
-
-    def __init__(self):
-        self.count = 0
-
-    def __call__(self, data) -> None:
-        self.count += len(data)
 
 
 # -- the card's clock -------------------------------------------------------

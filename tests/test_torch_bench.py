@@ -3,7 +3,8 @@ CPU: the bench's discs byte for byte against dvda_tpu's builders, every
 config at a small size (the kernels' plain versions, ``DVDA_TPU_TORCH_
 DEVICE=cpu``) with ``_record``'s and the witness's keys, the error line
 when the port's bytes differ from the host path's, the subset and device
-rules, and ``trace`` / ``device_idle_share`` of ``utils.profiling``."""
+rules, and the stages' ranges and ``device_idle_share`` of
+``utils.profiling``."""
 
 import json
 import os
@@ -147,14 +148,18 @@ def test_bench_raises_without_cuda(monkeypatch):
 
 
 def test_trace_with_and_without_capture():
-    with profiling.trace("bench/outside"):
+    """A stage is a ``record_function`` range under a capture, and none
+    without one; its time counts either way."""
+    timer = profiling.StageTimer()
+    with timer.stage("bench/outside"):
         x = torch.arange(8).sum()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
-        with profiling.trace("bench/inside"):
+        with timer.stage("bench/inside"):
             x = x + torch.arange(8).sum()
     names = [e.name for e in prof.events()]
     assert "bench/inside" in names and "bench/outside" not in names
+    assert timer.counts == {"bench/outside": 1, "bench/inside": 1}
     assert int(x) == 56
 
 
