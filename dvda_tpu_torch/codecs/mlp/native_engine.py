@@ -1128,7 +1128,8 @@ def decode_native(stream: bytes, boundaries: np.ndarray, probe_end: int,
     general path the result is int32 ``[T, C]`` even with
     ``want_packed``, as in dvda_tpu.  ``info``, when given, receives
     ``path`` (``"pipelined"``, ``"uniform"`` or ``"general"``) and, from
-    the pipelined driver, ``sections`` and ``chunks``.  Raises
+    the pipelined driver, ``sections``, ``chunks`` and the parse's
+    ``merge_stats()``.  Raises
     ``RuntimeError`` without the native library or without the requested
     CUDA device.  When the parser bails it logs a warning naming the
     reason and returns None (chunks already dispatched are dropped): the
@@ -1293,7 +1294,8 @@ def _pipelined(st, inc, stream, boundaries, probe_end, parameters,
         if not st["more"] and st["v"].F <= f0:
             break
 
-    info.update(path="pipelined", sections=n_sections, chunks=ci)
+    info.update(path="pipelined", sections=n_sections, chunks=ci,
+                **inc.merge_stats())
     v = st["v"]
     F = _frame_cut(v.frame_end, np.asarray(boundaries, dtype=np.int64),
                    probe_end)

@@ -147,6 +147,8 @@ def _load():
         fn = getattr(lib, name)
         fn.restype = c.c_int64
         fn.argtypes = [c.c_void_p]
+    lib.mp_merge_stats.restype = None
+    lib.mp_merge_stats.argtypes = [c.c_void_p, c.c_void_p]
     lib.mlp_parse_free.argtypes = [c.c_void_p]
     for name, res in [
         ("mp_status", c.c_int32), ("mp_bail_reason", c.c_int32),
@@ -538,6 +540,22 @@ class IncrementalParse:
         return (int(self._lib.mp_mt_repairs(self._h)),
                 int(self._lib.mp_mt_full_redo(self._h)))
 
+    def merge_stats(self) -> dict[str, int]:
+        """The multi-threaded parse's merger thread: ``merged_ahead``,
+        the sections it merged; ``merged_inline``, those ``step`` merged
+        on the caller's thread (a bail, a repaired entry frame, a shape
+        mismatch, a section past the reserved capacity); ``step_waits``,
+        the ``step`` calls that had to wait for it; ``parse_sections``,
+        the sections the stream was cut into; ``flushed_ahead``, the
+        merges the merger has finished copying (it takes a section in
+        one merge ahead of copying it).  All 0 on a sequential parse."""
+        out = (ctypes.c_int64 * 5)()
+        if self._h is not None:
+            self._lib.mp_merge_stats(self._h, out)
+        return dict(merged_ahead=out[0], merged_inline=out[1],
+                    step_waits=out[2], parse_sections=out[3],
+                    flushed_ahead=out[4])
+
     @property
     def pair_stats(self) -> tuple[int, int]:
         """(frame pairs decoded, pair attempts fallen back to serial) of
@@ -628,8 +646,10 @@ def parse_mlp_stream_begin(data: bytes, skip_values: bool = False,
 
     With ``threads > 1`` the stream is split at full-restart frames
     (parser state-reset points) and parsed by that many worker threads
-    concurrently; each ``step`` then merges the next completed section
-    (``max_frames`` granularity does not apply).  Output is bit-identical
+    concurrently, and a merger thread merges the completed sections in
+    order; each ``step`` then waits for at least one section merged since
+    the last ``step`` and shows all merged so far (``max_frames``
+    granularity does not apply; ``step(0)`` waits for the whole stream).  Output is bit-identical
     to the sequential parse: a section whose entry frame drops is
     repaired by a local sequential reparse of at most two sections (the
     previous verified boundary through the damaged section's end) —

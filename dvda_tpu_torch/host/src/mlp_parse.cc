@@ -29,6 +29,7 @@
 #include <memory>
 #include <mutex>
 #include <thread>
+#include <type_traits>
 #include <vector>
 #if defined(__x86_64__)
 #include <x86intrin.h>
@@ -347,14 +348,26 @@ enum BailReason {
   kBailOverlappingRanges = 5,  // overlapping substream channel ranges
 };
 
-struct Result {
-  int status = 0;  // 0 ok, 1 bail -> python fallback
-  int bail = kBailNone;  // BailReason detail for status != 0
+// A parse result's scalars that a section merge carries over: the
+// stream's shape (set by the first section that commits a frame, held
+// fixed by every later one) and the running maxima below.
+struct Head {
   int substream_count = 0;
   int mmc = -1;
   int assignment = -1;
   int min_ch[2] = {0, 0};
   int max_ch[2] = {-1, -1};
+  int32_t res_amax[2] = {0, 0};  // max |residual| seen (monotone; includes
+                                 // rolled-back frames — only used to pick a
+                                 // safe transfer dtype, so overcount is fine)
+  // max bits spanned by any single sub-lane (monotone, incl. rolled-back
+  // frames — only used to size the kernel's aligned window rows)
+  int32_t sub_span_max[2] = {0, 0};
+};
+
+struct Result : Head {
+  int status = 0;  // 0 ok, 1 bail -> python fallback
+  int bail = kBailNone;  // BailReason detail for status != 0
 
   // frame-level
   rawvec<int32_t> frame_len;
@@ -380,9 +393,6 @@ struct Result {
   rawvec<int32_t> blk_rc_fir[2], blk_rc_iir[2]; // [NB*n_ch*8]
   rawvec<int32_t> blk_iir_init[2];              // [NB*n_ch*8]
   rawvec<int32_t> residuals[2];                 // ragged (blk, ch, sample)
-  int32_t res_amax[2] = {0, 0};  // max |residual| seen (monotone; includes
-                                 // rolled-back frames — only used to pick a
-                                 // safe transfer dtype, so overcount is fine)
 
   // skip-values mode (device Huffman decode): instead of residual values,
   // per-block decode tables for the on-device residual kernel
@@ -398,10 +408,80 @@ struct Result {
   // per block (first always 0).  Lets the device kernel decode each run of
   // k samples as an independent lane (k*J scan steps instead of S0*J).
   rawvec<int32_t> blk_sub_bitpos[2];
-  // max bits spanned by any single sub-lane (monotone, incl. rolled-back
-  // frames — only used to size the kernel's aligned window rows)
-  int32_t sub_span_max[2] = {0, 0};
 };
+
+// Apply f to each array a section merge appends, across one or more
+// Results in step (f(a.x, b.x) for each array x).  noise0/noise1 are left
+// out: the parse never writes them (mp_fill_noise expands them later, on
+// the caller's thread).
+template <class F, class... R>
+static void each_array(F&& f, R&... r) {
+  f(r.frame_len...);
+  f(r.frame_end...);
+  f(r.out_shift...);
+  f(r.mat_active...);
+  f(r.mat_out...);
+  f(r.mat_quant...);
+  f(r.mat_coeff...);
+  f(r.mat_noise...);
+  f(r.frame_seed...);
+  f(r.frame_nshift...);
+  f(r.bypassed...);
+  for (int s = 0; s < kMaxSubstreams; s++) {
+    f(r.fr_nblocks[s]...);
+    f(r.blk_restart[s]...);
+    f(r.blk_param_update[s]...);
+    f(r.blk_fir_any[s]...);
+    f(r.blk_len[s]...);
+    f(r.blk_shift[s]...);
+    f(r.blk_quant[s]...);
+    f(r.blk_iir_reset[s]...);
+    f(r.blk_rc_fir[s]...);
+    f(r.blk_rc_iir[s]...);
+    f(r.blk_iir_init[s]...);
+    f(r.residuals[s]...);
+    f(r.blk_res_bitpos[s]...);
+    f(r.blk_codebook[s]...);
+    f(r.blk_lsb_bits[s]...);
+    f(r.blk_res_offset[s]...);
+    f(r.blk_nbyp[s]...);
+    f(r.blk_byp_mask[s]...);
+    f(r.blk_sub_bitpos[s]...);
+  }
+}
+constexpr int kMergedArrays = 11 + 19 * kMaxSubstreams;
+
+// The header half of merging section b after a: false, with a unchanged,
+// where b's shape differs from the stream's.
+static bool merge_head(Head& a, const Head& b) {
+  const bool set_shape = a.substream_count == 0, set_ch = a.mmc < 0;
+  if (!set_shape && (b.substream_count != a.substream_count ||
+                     b.assignment != a.assignment))
+    return false;
+  if (!set_ch) {
+    if (b.mmc != a.mmc) return false;
+    const int ns = set_shape ? b.substream_count : a.substream_count;
+    for (int s = 0; s < ns; s++)
+      if (b.min_ch[s] != a.min_ch[s] || b.max_ch[s] != a.max_ch[s])
+        return false;
+  }
+  if (set_shape) {
+    a.substream_count = b.substream_count;
+    a.assignment = b.assignment;
+  }
+  if (set_ch) {
+    a.mmc = b.mmc;
+    for (int s = 0; s < kMaxSubstreams; s++) {
+      a.min_ch[s] = b.min_ch[s];
+      a.max_ch[s] = b.max_ch[s];
+    }
+  }
+  for (int s = 0; s < kMaxSubstreams; s++) {
+    a.res_amax[s] = std::max(a.res_amax[s], b.res_amax[s]);
+    a.sub_span_max[s] = std::max(a.sub_span_max[s], b.sub_span_max[s]);
+  }
+  return true;
+}
 
 struct Parser {
   std::vector<uint8_t> padded;  // stream + 8 zero guard bytes
@@ -491,6 +571,12 @@ struct Parser {
 
   ~Parser() {
     if (mt) {
+      {  // the merger first: it reads the workers' sections and writes out
+        std::lock_guard<std::mutex> lk(mt->mu);
+        mt->quit = true;
+      }
+      mt->cv.notify_all();
+      if (mt->merger.joinable()) mt->merger.join();
       mt->next.store(mt->secs.size());  // early close: stop scheduling
       for (auto& t : mt->pool)
         if (t.joinable()) t.join();
@@ -533,40 +619,9 @@ struct Parser {
     auto rsv = [&](auto& v) {
       v.reserve(size_t(double(v.size()) * f) + 8);
     };
-    rsv(out.frame_len);
-    rsv(out.frame_end);
-    rsv(out.out_shift);
-    rsv(out.mat_active);
-    rsv(out.mat_out);
-    rsv(out.mat_quant);
-    rsv(out.mat_coeff);
-    rsv(out.mat_noise);
+    each_array(rsv, out);
     rsv(out.noise0);
     rsv(out.noise1);
-    rsv(out.frame_seed);
-    rsv(out.frame_nshift);
-    rsv(out.bypassed);
-    for (int s = 0; s < kMaxSubstreams; s++) {
-      rsv(out.fr_nblocks[s]);
-      rsv(out.blk_restart[s]);
-      rsv(out.blk_param_update[s]);
-      rsv(out.blk_fir_any[s]);
-      rsv(out.blk_len[s]);
-      rsv(out.blk_shift[s]);
-      rsv(out.blk_quant[s]);
-      rsv(out.blk_iir_reset[s]);
-      rsv(out.blk_rc_fir[s]);
-      rsv(out.blk_rc_iir[s]);
-      rsv(out.blk_iir_init[s]);
-      rsv(out.residuals[s]);
-      rsv(out.blk_res_bitpos[s]);
-      rsv(out.blk_codebook[s]);
-      rsv(out.blk_lsb_bits[s]);
-      rsv(out.blk_res_offset[s]);
-      rsv(out.blk_nbyp[s]);
-      rsv(out.blk_byp_mask[s]);
-      rsv(out.blk_sub_bitpos[s]);
-    }
   }
   int64_t dropped = 0;  // frames rolled back (ParseError)
   int64_t frame_pairs = 0;  // frame pairs decoded by pair_impl (stats)
@@ -664,16 +719,27 @@ struct Parser {
   // decoding parameter), so the stream splits into independently parsable
   // sections at such frames.  Pass 1 (mlp_parse_begin_mt) finds them with
   // a cheap header walk; worker threads parse byte-balanced sections
-  // concurrently; run_some/mt_step merges completed sections in stream
-  // order, preserving the incremental-parse API.  A section whose ENTRY
+  // concurrently; a merger thread (merger_loop) merges completed sections
+  // in stream order, and run_some/mt_step publishes what it merged,
+  // preserving the incremental-parse API.  A section whose ENTRY
   // frame drops is repaired by a local sequential reparse from the
-  // previous verified boundary (see mt_step); later drops leave a
+  // previous verified boundary (see mt_step_inline); later drops leave a
   // section bit-identical to the sequential parse, and a bail in a
   // trustworthy section propagates directly (the sequential parse would
   // bail at the same frame).  Repairs are staged like clean sections,
   // so ANY number of damaged sections each costs one local reparse of
   // its neighborhood (round 5); only cross-section shape mismatches
   // fall back to the full sequential redo.
+  //
+  // The merger copies sections into capacity that out's vectors already
+  // own, past their published sizes, and never touches the vector
+  // objects themselves: mt_step publishes by resizing them within that
+  // capacity (NoInit constructs nothing, so the copied elements stay), so
+  // the views a caller holds from one step to the next stay valid.  What
+  // the merger cannot do that way — a bail, a damaged entry frame, a
+  // shape mismatch, a section beyond the reserved capacity — it hands
+  // back to mt_step, which does it on the caller's thread as before and
+  // then restarts the merger.
   struct Mt {
     std::vector<std::unique_ptr<Parser>> secs;
     std::vector<std::thread> pool;
@@ -695,6 +761,32 @@ struct Parser {
     size_t staged_lo = 0;   // first cut index of the staged byte range
                             // (< staged_idx after a repair: the staged
                             // parser then covers several sections)
+
+    // The merger.  `merger_on` (under mu) says who holds the cursor —
+    // merged, staged, staged_idx, staged_lo, the lanes' bases and
+    // capacities, reserve_pending and fresh: the merger while it is set,
+    // mt_step while it is not.  The merger writes flushes, the lanes,
+    // head, ahead_dropped and adopt under mu, and mt_step reads them
+    // under mu to publish.
+    std::thread merger;
+    bool merger_on = false;
+    bool quit = false;  // teardown: the merger returns
+    struct Lane {
+      char* base;
+      size_t cap, len;  // bytes
+    };
+    Lane lanes[kMergedArrays];  // out's arrays, in each_array order
+    Head head;                  // out's Head over the merger's flushes
+    bool reserve_pending = false;  // out holds no frame yet: the first
+                                   // flush reserves in `fresh`
+    bool adopt = false;  // the lanes live in `fresh` until published
+    Result fresh;
+    int64_t ahead_dropped = 0;  // dropped frames of unpublished flushes
+    size_t flushes = 0;         // merges the merger has finished...
+    size_t published = 0;       // ...and how many of them mt_step showed
+    int64_t merged_ahead = 0;   // sections taken in by the merger
+    int64_t merged_inline = 0;  // sections taken in by mt_step
+    int64_t step_waits = 0;     // mt_step calls that blocked on it
   };
   std::unique_ptr<Mt> mt;
 
@@ -715,23 +807,226 @@ struct Parser {
       if (t.joinable()) t.join();
   }
 
+  // A section whose entry frame parsed cleanly is bit-identical to the
+  // sequential parse of its byte range (see first_frame_dropped); section
+  // 0 starts at offset 0 like the sequential parse, so it is trustworthy
+  // unconditionally.
+  static bool entry_ok(size_t i, const Parser& w) {
+    return i == 0 || !w.first_frame_dropped;
+  }
+  // What the merger takes: a clean section with a trusted entry.  A bail
+  // or a damaged entry frame is mt_step_inline's.
+  static bool merges_ahead(size_t i, const Parser& w) {
+    return w.out.status == 0 && entry_ok(i, w);
+  }
+
+  // Grow each of r's arrays that cannot take section w's after it to the
+  // projected FINAL size: w covers bytes [.., w.size) of the stream, so
+  // the merged size × size/w.size is a tight estimate.  Without this out's
+  // multi-MB arrays — which never go through reserve_after_first_frame in
+  // MT mode — re-pay the geometric-realloc copies across every merge.
+  void make_room(Result& r, Parser& w) const {
+    const double grow = double(size) / double(w.size) * 1.06;
+    each_array(
+        [grow](auto& d, auto& s) {
+          const size_t need = d.size() + s.size();
+          if (d.capacity() < need) {
+            const size_t est = size_t(double(need) * grow) + 8;
+            d.reserve(est > need ? est : need);
+          }
+        },
+        r, w.out);
+  }
+
+  // Point the lanes at r's arrays as they stand.
+  void take_lanes(Result& r) {
+    Mt::Lane* l = mt->lanes;
+    each_array(
+        [&](auto& v) {
+          using T = typename std::decay_t<decltype(v)>::value_type;
+          *l++ = {reinterpret_cast<char*>(v.data()), v.capacity() * sizeof(T),
+                  v.size() * sizeof(T)};
+        },
+        r);
+  }
+
+  // Hand the cursor to the merger over out's arrays as they stand (mu
+  // held, or before the merger thread exists).
+  void start_merger() {
+    Mt& m = *mt;
+    take_lanes(out);
+    m.head = out;
+    m.reserve_pending = out.frame_len.capacity() == 0;
+    m.merger_on = true;
+    m.cv.notify_all();
+  }
+
+  // Show the caller what the merger has merged since the last publish:
+  // size out's arrays over it (mu held).
+  void publish() {
+    Mt& m = *mt;
+    if (m.flushes == m.published) return;
+    if (m.adopt) {  // out's arrays were empty: take the reserved ones
+      each_array([](auto& a, auto& b) { a = std::move(b); }, out, m.fresh);
+      m.adopt = false;
+    }
+    const Mt::Lane* l = m.lanes;
+    each_array(
+        [&](auto& v) {
+          using T = typename std::decay_t<decltype(v)>::value_type;
+          v.resize((l++)->len / sizeof(T));  // within capacity: no realloc
+        },
+        out);
+    static_cast<Head&>(out) = m.head;
+    dropped += m.ahead_dropped;
+    m.ahead_dropped = 0;
+    m.published = m.flushes;
+  }
+
+  // Copy section w after the lanes (merger thread, mu not held), its
+  // Head into h and its byte counts into add; false, with nothing
+  // copied, where its shape differs or it does not fit the capacity.
+  bool merge_ahead(Parser& w, Head& h, size_t* add) {
+    Mt& m = *mt;
+    std::fill(add, add + kMergedArrays, size_t(0));
+    if (w.out.frame_len.empty()) return true;  // nothing committed
+    if (!merge_head(h, w.out)) return false;
+    bool fits = true;
+    size_t k = 0;
+    each_array(
+        [&](auto& s) {
+          using T = typename std::decay_t<decltype(s)>::value_type;
+          add[k] = s.size() * sizeof(T);
+          if (m.lanes[k].len + add[k] > m.lanes[k].cap) fits = false;
+          k++;
+        },
+        w.out);
+    if (!fits) return false;
+    k = 0;
+    each_array(
+        [&](auto& s) {
+          if (add[k])
+            std::memcpy(m.lanes[k].base + m.lanes[k].len, s.data(), add[k]);
+          k++;
+        },
+        w.out);
+    return true;
+  }
+
+  // The merger thread: the clean-section half of mt_step_inline, run as
+  // soon as each section is done.
+  void merger_loop() {
+    Mt& m = *mt;
+    std::unique_lock<std::mutex> lk(m.mu);
+    auto hand_back = [&] {  // to mt_step, which does the rest inline
+      m.merger_on = false;
+      m.cv.notify_all();
+    };
+    for (;;) {
+      m.cv.wait(lk, [&] {
+        return m.quit || (m.merger_on && (m.merged == m.secs.size() ||
+                                          m.done[m.merged] != 0));
+      });
+      if (m.quit) return;
+      const size_t i = m.merged;
+      Parser* w = i < m.secs.size() ? m.secs[i].get() : nullptr;
+      if (w && !merges_ahead(i, *w)) {
+        hand_back();
+        continue;
+      }
+      if (!m.staged && !w) {
+        hand_back();
+        continue;
+      }
+      if (m.staged) {
+        // out's first frames: reserve the projected final size in
+        // `fresh`, which the next publish adopts
+        const bool reserving =
+            m.reserve_pending && !m.staged->out.frame_len.empty();
+        if (reserving) {
+          make_room(m.fresh, *m.staged);
+          take_lanes(m.fresh);
+          m.reserve_pending = false;
+        }
+        Head h = m.head;
+        size_t add[kMergedArrays];
+        lk.unlock();
+        const bool ok = merge_ahead(*m.staged, h, add);
+        lk.lock();
+        if (!ok) {  // a shape mismatch or no room
+          hand_back();
+          continue;
+        }
+        for (int k = 0; k < kMergedArrays; k++) m.lanes[k].len += add[k];
+        m.head = h;
+        m.adopt = m.adopt || reserving;
+        m.ahead_dropped += m.staged->dropped;
+        m.flushes++;
+        std::unique_ptr<Parser> old = std::move(m.staged);
+        if (!w) m.merger_on = false;  // every section merged
+        m.cv.notify_all();
+        lk.unlock();
+        old.reset();  // free the section's arrays outside mu
+        lk.lock();
+        if (!w) continue;
+      }
+      m.staged = std::move(m.secs[i]);
+      m.staged_idx = i;
+      m.staged_lo = i;
+      m.merged++;
+      m.merged_ahead++;
+    }
+  }
+
+  // step on a multi-threaded parse: wait for the merger to merge at least
+  // one section past the last publish (max_frames > 0) or every section
+  // (max_frames <= 0), and publish all it has merged.  Where the merger
+  // has handed the cursor back, do that section's work here and restart
+  // the merger.
   int32_t mt_step(int64_t max_frames) {
     Mt& m = *mt;
+    bool waited = false;
+    for (;;) {
+      {
+        std::unique_lock<std::mutex> lk(m.mu);
+        auto ready = [&] {
+          return !m.merger_on || (max_frames > 0 && m.flushes > m.published);
+        };
+        if (!ready()) {
+          if (!waited) m.step_waits++;
+          waited = true;
+          m.cv.wait(lk, ready);
+        }
+        publish();
+        if (m.merger_on) return 1;
+      }
+      if (m.merged >= m.secs.size() && !m.staged) return 0;  // all merged
+      if (mt_step_inline() == 0) return 0;
+      {
+        std::lock_guard<std::mutex> lk(m.mu);
+        start_merger();
+      }
+      if (max_frames > 0) return 1;
+    }
+  }
+
+  // The merge on the caller's thread, up to the first section merged or
+  // repaired: what the merger hands back (a bail, a damaged entry frame,
+  // a shape mismatch, a section beyond the reserved capacity).
+  int32_t mt_step_inline() {
+    Mt& m = *mt;
     bool progressed = false;
-    while (m.merged < m.secs.size() && !(max_frames > 0 && progressed)) {
+    while (m.merged < m.secs.size() && !progressed) {
       {
         std::unique_lock<std::mutex> lk(m.mu);
         m.cv.wait(lk, [&] { return m.done[m.merged] != 0; });
+        m.merged_inline++;
       }
       size_t i = m.merged;
       std::unique_ptr<Parser> w = std::move(m.secs[i]);
       m.merged++;
-      // A worker whose entry frame parsed cleanly is bit-identical to
-      // the sequential parse of its byte range (see first_frame_dropped);
-      // section 0 starts at offset 0 like the sequential parse, so it is
-      // trustworthy unconditionally.
-      bool entry_ok = i == 0 || !w->first_frame_dropped;
-      if (w->out.status != 0 && entry_ok) {
+      const bool trusted = entry_ok(i, *w);
+      if (w->out.status != 0 && trusted) {
         // the sequential parse would bail at the same frame with the
         // same state: propagate instead of reparsing the whole stream
         // (callers fall back to Python on status != 0 regardless of
@@ -743,13 +1038,13 @@ struct Parser {
         stop_workers();
         return 0;
       }
-      if (entry_ok) {
+      if (trusted) {
         bool had_staged = m.staged != nullptr;
         if (!flush_staged()) {
           redo_sequential();
           return 0;
         }
-        progressed = progressed || had_staged;
+        progressed = had_staged;
         m.staged = std::move(w);
         m.staged_idx = i;
         m.staged_lo = i;
@@ -830,80 +1125,11 @@ struct Parser {
   }
 
   bool merge_section(Parser& w) {
-    Result& a = out;
-    Result& b = w.out;
-    if (b.frame_len.empty()) return true;  // nothing committed
-    if (a.substream_count == 0) {
-      a.substream_count = b.substream_count;
-      a.assignment = b.assignment;
-    } else if (b.substream_count != a.substream_count ||
-               b.assignment != a.assignment) {
-      return false;
-    }
-    if (a.mmc < 0) {
-      a.mmc = b.mmc;
-      for (int s = 0; s < kMaxSubstreams; s++) {
-        a.min_ch[s] = b.min_ch[s];
-        a.max_ch[s] = b.max_ch[s];
-      }
-    } else if (b.mmc != a.mmc) {
-      return false;
-    } else {
-      for (int s = 0; s < a.substream_count; s++)
-        if (b.min_ch[s] != a.min_ch[s] || b.max_ch[s] != a.max_ch[s])
-          return false;
-    }
-    // Reserve the projected FINAL size up front (worker w covers bytes
-    // [.., w.size) of the parent stream, so post-merge size × size/w.size
-    // is a tight estimate): without this the parent's multi-MB vectors —
-    // which never go through reserve_after_first_frame in MT mode —
-    // re-pay the geometric-realloc copies across every section merge.
-    double grow = double(size) / double(w.size) * 1.06;
-    auto app = [grow](auto& dst, auto& src) {
-      size_t need = dst.size() + src.size();
-      if (dst.capacity() < need) {
-        size_t est = size_t(double(need) * grow) + 8;
-        dst.reserve(est > need ? est : need);
-      }
-      dst.insert(dst.end(), src.begin(), src.end());
-    };
-    app(a.frame_len, b.frame_len);
-    app(a.frame_end, b.frame_end);
-    app(a.out_shift, b.out_shift);
-    app(a.mat_active, b.mat_active);
-    app(a.mat_out, b.mat_out);
-    app(a.mat_quant, b.mat_quant);
-    app(a.mat_coeff, b.mat_coeff);
-    app(a.mat_noise, b.mat_noise);
-    app(a.noise0, b.noise0);
-    app(a.noise1, b.noise1);
-    app(a.frame_seed, b.frame_seed);
-    app(a.frame_nshift, b.frame_nshift);
-    app(a.bypassed, b.bypassed);
-    for (int s = 0; s < kMaxSubstreams; s++) {
-      app(a.fr_nblocks[s], b.fr_nblocks[s]);
-      app(a.blk_restart[s], b.blk_restart[s]);
-      app(a.blk_param_update[s], b.blk_param_update[s]);
-      app(a.blk_fir_any[s], b.blk_fir_any[s]);
-      app(a.blk_len[s], b.blk_len[s]);
-      app(a.blk_shift[s], b.blk_shift[s]);
-      app(a.blk_quant[s], b.blk_quant[s]);
-      app(a.blk_iir_reset[s], b.blk_iir_reset[s]);
-      app(a.blk_rc_fir[s], b.blk_rc_fir[s]);
-      app(a.blk_rc_iir[s], b.blk_rc_iir[s]);
-      app(a.blk_iir_init[s], b.blk_iir_init[s]);
-      app(a.residuals[s], b.residuals[s]);
-      if (b.res_amax[s] > a.res_amax[s]) a.res_amax[s] = b.res_amax[s];
-      app(a.blk_res_bitpos[s], b.blk_res_bitpos[s]);
-      app(a.blk_codebook[s], b.blk_codebook[s]);
-      app(a.blk_lsb_bits[s], b.blk_lsb_bits[s]);
-      app(a.blk_res_offset[s], b.blk_res_offset[s]);
-      app(a.blk_nbyp[s], b.blk_nbyp[s]);
-      app(a.blk_byp_mask[s], b.blk_byp_mask[s]);
-      app(a.blk_sub_bitpos[s], b.blk_sub_bitpos[s]);
-      if (b.sub_span_max[s] > a.sub_span_max[s])
-        a.sub_span_max[s] = b.sub_span_max[s];
-    }
+    if (w.out.frame_len.empty()) return true;  // nothing committed
+    if (!merge_head(out, w.out)) return false;
+    make_room(out, w);
+    each_array([](auto& d, auto& s) { d.insert(d.end(), s.begin(), s.end()); },
+               out, w.out);
     return true;
   }
 
@@ -2592,9 +2818,10 @@ int32_t mlp_parse_step(void* h, int64_t max_frames) {
 
 // Multi-threaded incremental parse: split the stream at state-reset
 // frames (see scan_section_entries), parse byte-balanced sections on
-// `nthreads` worker threads, and have mlp_parse_step merge completed
-// sections in order.  Falls back to plain sequential parsing when the
-// stream offers fewer than two sections.  flags as mlp_parse_begin2.
+// `nthreads` worker threads, merge completed sections in order on a
+// merger thread, and have mlp_parse_step publish them.  Falls back to
+// plain sequential parsing when the stream offers fewer than two
+// sections.  flags as mlp_parse_begin2.
 void* mlp_parse_begin_mt(const uint8_t* data, int64_t size,
                          const int32_t* lut_val, const int32_t* lut_len,
                          int32_t flags, int32_t nthreads) {
@@ -2658,6 +2885,8 @@ void* mlp_parse_begin_mt(const uint8_t* data, int64_t size,
       }
     });
   }
+  p->start_merger();
+  m.merger = std::thread([p] { p->merger_loop(); });
   return p;
 }
 
@@ -2679,6 +2908,22 @@ int64_t mp_pair_falls(void* h) {
 }
 int64_t mp_mt_full_redo(void* h) {
   return static_cast<Parser*>(h)->mt_full_redo;
+}
+// The merger thread's statistics: out[0] sections it took in, out[1]
+// sections mt_step took in on the caller's thread, out[2] steps that had
+// to wait for it, out[3] the stream's sections, out[4] the merges it has
+// finished copying into the result (a section or a repair each; all 0 on
+// a sequential parse).
+void mp_merge_stats(void* h, int64_t* out) {
+  Parser* p = static_cast<Parser*>(h);
+  out[0] = out[1] = out[2] = out[3] = out[4] = 0;
+  if (!p->mt) return;
+  std::lock_guard<std::mutex> lk(p->mt->mu);
+  out[0] = p->mt->merged_ahead;
+  out[1] = p->mt->merged_inline;
+  out[2] = p->mt->step_waits;
+  out[3] = int64_t(p->mt->secs.size());
+  out[4] = int64_t(p->mt->flushes);
 }
 int32_t mp_substream_count(void* h) { return R(h).substream_count; }
 int32_t mp_mmc(void* h) { return R(h).mmc; }

@@ -2,9 +2,15 @@
 dvda_tpu's (dvda_tpu/host) on synthetic streams and discs: parse arrays
 in full and skip-values mode, ``mp_pack`` arenas, ``mp_reconstruct``
 bytes, the MLP and PCM demux, host C2 and ``pcm_repack``.  Identical
-arrays and bytes."""
+arrays and bytes.  Also the port's multi-threaded parse, whose merger
+thread merges sections off the caller's thread, against dvda_tpu's
+sequential parse: its output, the views it leaves valid, its counters,
+the sections it hands back and its teardown."""
 
 import os
+import random
+import threading
+import time
 
 import numpy as np
 import pytest
@@ -176,3 +182,235 @@ def test_pcm_repack_identical(bits, channels):
         got = host.pcm_repack(chunks, table, per, max_bytes)
         want = jax_host.pcm_repack(chunks, table, per, max_bytes)
         assert bytes(got) == bytes(want) and len(got) == max_bytes
+
+
+# ---- the multi-threaded parse's merger thread ------------------------------
+
+MT_SYNTH = dict(channel_assignment=17, substream_count=2, sample_rate=96000,
+                n_frames=600, seed=7, major_sync_every=4, restart_every=4,
+                blocks_per_frame=2, block_size=40)
+
+
+def _mt_stream(**kw):
+    stream = synth_mlp_stream(MlpSynthConfig(**dict(MT_SYNTH, **kw)))
+    assert len(stream) > 64 << 10  # below this the MT path won't engage
+    return stream
+
+
+def _frame_starts(stream):
+    starts, off = [], 0
+    while off + 4 <= len(stream):
+        total = (((stream[off] & 0x0F) << 8) | stream[off + 1]) * 2
+        if total < 4 or off + total > len(stream):
+            break
+        starts.append(off)
+        off += total
+    return starts
+
+
+def _damaged(stream, frames, at=40):
+    data = bytearray(stream)
+    for fi in frames:
+        data[_frame_starts(stream)[fi] + at] ^= 0x5A
+    return bytes(data)
+
+
+def _arrays(v, noise=True):
+    """Every array and scalar of a parse view, arrays copied."""
+    if v.status != 0:
+        return {"status": v.status, "bail_reason": v.bail_reason}
+    got = {k: getattr(v, k) for k in _FRAME_KEYS}
+    if noise and not v.skip_values:
+        got.update(noise0=v.noise0, noise1=v.noise1)
+    for s, sub in enumerate(v.sub):
+        got.update({f"{s}.{k}": x for k, x in sub.items()})
+    return {k: np.array(x) if isinstance(x, np.ndarray) else x
+            for k, x in got.items()}
+
+
+def _assert_same(got, want):
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert _equal(got[k], want[k]), k
+
+
+def _reference(stream, **kw):
+    """The arrays of dvda_tpu's sequential parse."""
+    inc = jax_host.parse_mlp_stream_begin(stream, threads=1, **kw)
+    try:
+        inc.step(0)
+        return _arrays(inc.view())
+    finally:
+        inc.close()
+
+
+def _parse(stream, threads, **kw):
+    """(arrays, merge_stats, mt_stats) of the port's parse stepped to its
+    end."""
+    inc = host.parse_mlp_stream_begin(stream, threads=threads, **kw)
+    try:
+        assert inc.step(0) is False
+        return _arrays(inc.view()), inc.merge_stats(), inc.mt_stats
+    finally:
+        inc.close()
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(skip_values=True, sub_every=8)],
+                         ids=["values", "skip"])
+@pytest.mark.parametrize("threads", [2, 3, 8])
+def test_mt_merge_bit_identical(threads, kw):
+    """The merger's parse == dvda_tpu's sequential parse, array for array,
+    on a stream of 8 sections or more, as is the port's sequential one."""
+    stream = _mt_stream()
+    want = _reference(stream, **kw)
+    seq_got, seq, _ = _parse(stream, 1, **kw)
+    got, stats, _ = _parse(stream, threads, **kw)
+    assert seq == dict(merged_ahead=0, merged_inline=0, step_waits=0,
+                       parse_sections=0, flushed_ahead=0)
+    assert stats["parse_sections"] >= 8
+    assert stats["merged_ahead"] == stats["parse_sections"]
+    _assert_same(seq_got, want)
+    _assert_same(got, want)
+
+
+def test_mt_merge_views_stay_valid():
+    """Views taken after a step read the same values after the merger has
+    merged the rest, and those values are the final arrays' prefix."""
+    inc = host.parse_mlp_stream_begin(_mt_stream(), threads=4)
+    try:
+        held, more = [], True
+        while more and len(held) < 3:  # the merger may finish any time
+            more = inc.step(64)
+            v = inc.view()
+            held.append((v, _arrays(v, noise=False)))
+        assert inc.step(0) is False
+        final = _arrays(inc.view(), noise=False)
+        assert inc.merge_stats()["merged_inline"] == 0
+        assert 0 < held[0][1]["F"] <= final["F"]
+        for v, was in held:
+            _assert_same(_arrays(v, noise=False), was)
+            for k, x in was.items():
+                if isinstance(x, np.ndarray):
+                    assert _equal(x, final[k][:len(x)]), k
+    finally:
+        inc.close()
+
+
+def test_mt_merge_runs_ahead():
+    """Given time before the steps, the merger merges every section, and
+    the steps find them merged and never wait."""
+    inc = host.parse_mlp_stream_begin(_mt_stream(), threads=4)
+    try:
+        deadline = time.monotonic() + 60
+        while True:
+            stats = inc.merge_stats()
+            if (stats["flushed_ahead"] == stats["parse_sections"]
+                    or time.monotonic() > deadline):
+                break
+            time.sleep(0.01)
+        assert stats["flushed_ahead"] == stats["parse_sections"] >= 8
+        while inc.step(64):
+            pass
+        stats = inc.merge_stats()
+        assert stats["merged_ahead"] == stats["parse_sections"]
+        assert stats["merged_inline"] == 0 and stats["step_waits"] == 0
+    finally:
+        inc.close()
+
+
+def _entry_sweep():
+    """One damaged frame at a time across the stream: mid-section drops
+    need nothing, section-entry drops a local repair on the caller's
+    thread."""
+    base = _mt_stream()
+    n = len(_frame_starts(base))
+    for fi in range(3, n - 3, 13):
+        yield _damaged(base, [fi]), dict(full_redo=0, max_repairs=1)
+
+
+def _entry_bursts():
+    """Ten damaged frames in a burst: consecutive sections' entries."""
+    base = _mt_stream()
+    n = len(_frame_starts(base))
+    for fi in range(3, n - 40, 37):
+        yield _damaged(base, range(fi, fi + 40, 4)), dict(full_redo=0)
+
+
+def _random_damage():
+    """The random corruption sweep of tests/test_fuzz.py."""
+    rng = random.Random(303)
+    base = synth_mlp_stream(MlpSynthConfig(
+        channel_assignment=17, substream_count=2, n_frames=400, seed=31,
+        major_sync_every=4, restart_every=4, blocks_per_frame=2,
+        block_size=40))
+    for _ in range(10):
+        data = bytearray(base)
+        for _ in range(rng.randrange(1, 4)):
+            data[rng.randrange(len(data))] ^= rng.randrange(1, 256)
+        yield bytes(data), {}
+
+
+def _bail_stream():
+    """No check data and one damaged frame mid-stream: the substreams'
+    frame lengths disagree and the parse bails there."""
+    return _damaged(_mt_stream(checkdata=False), [302], at=174)
+
+
+def _mid_bail():
+    yield _bail_stream(), dict(full_redo=0, status=1)
+
+
+def _denser_tail():
+    """Large blocks, then small ones: the first section's projection
+    leaves later sections past the reserved capacity."""
+    def part(block_size, blocks_per_frame, seed):
+        return synth_mlp_stream(MlpSynthConfig(**dict(
+            MT_SYNTH, n_frames=300, seed=seed, block_size=block_size,
+            blocks_per_frame=blocks_per_frame, end_marker=False)))
+    yield part(160, 1, 3) + part(8, 8, 4), dict(full_redo=0, max_repairs=0)
+
+
+@pytest.mark.parametrize("case", [_entry_sweep, _entry_bursts, _random_damage,
+                                  _mid_bail, _denser_tail],
+                         ids=lambda f: f.__name__.strip("_"))
+def test_mt_merge_handed_back_matches_sequential(case):
+    """Damaged and uneven streams, whose sections the merger hands back
+    to ``step`` (a repair, a bail, a section past the reserved capacity):
+    the parse still equals dvda_tpu's sequential one, and every repair or
+    bail shows as a section merged on the caller's thread."""
+    repaired = inline = 0
+    for data, expect in case():
+        want = _reference(data)
+        got, stats, (repairs, full_redo) = _parse(data, 4)
+        _assert_same(got, want)
+        assert full_redo == expect.get("full_redo", full_redo)
+        assert repairs <= expect.get("max_repairs", repairs)
+        assert want.get("status", 0) == expect.get("status",
+                                                   want.get("status", 0))
+        if repairs or got.get("status", 0):
+            assert stats["merged_inline"] > 0, stats
+        repaired += repairs
+        inline += stats["merged_inline"]
+    if case in (_entry_sweep, _entry_bursts):
+        assert repaired >= 1  # the sweep hit a section's entry frame
+    if case in (_mid_bail, _denser_tail):
+        assert inline >= 1
+
+
+@pytest.mark.parametrize("when", ["begin", "step", "bail"])
+def test_mt_merge_close(when):
+    """close() stops and joins the merger and the workers straight after
+    begin, after one step and after a bail, and a second close() does
+    nothing."""
+    stream = _bail_stream() if when == "bail" else _mt_stream()
+    inc = host.parse_mlp_stream_begin(stream, threads=8)
+    if when == "step":
+        inc.step(64)
+    elif when == "bail":
+        assert inc.step(0) is False and inc.status == 1
+    closer = threading.Thread(target=inc.close)
+    closer.start()
+    closer.join(5)
+    assert not closer.is_alive(), "close() hung"
+    inc.close()
+    assert inc.merge_stats()["parse_sections"] == 0
