@@ -92,16 +92,19 @@ class AlbumDriver:
     # -- logical work -----------------------------------------------------
 
     def track_work(self, n: int) -> dict:
-        """Track ``n``'s logical work by layer (see ``roofline.py``)."""
+        """Track ``n``'s logical work by layer (see ``roofline.py``): the
+        codec's layer (``mlp`` or ``pcm``), and ``cppm`` where the album
+        is encrypted."""
         cfg, track = self.cfg, self.album.tracks[n]
         if cfg["codec"] == "mlp":
             ref = self.mlp_ref()
             counts = np.bincount(track.layout, minlength=len(ref.macs))
             wav = track.pcm_frames * ref.samples.shape[2] * (
                 cfg["bits_per_sample"] // 8)
-            return {"mlp": {"bytes": float(counts @ ref.stream_bytes + wav),
-                            "ops": float(2 * (counts @ ref.macs))}}
-        out = {"pcm": {"bytes": 2.0 * track.chunks.size, "ops": 0.0}}
+            out = {"mlp": {"bytes": float(counts @ ref.stream_bytes + wav),
+                           "ops": float(2 * (counts @ ref.macs))}}
+        else:
+            out = {"pcm": {"bytes": 2.0 * track.chunks.size, "ops": 0.0}}
         if cfg.get("encrypted"):
             span = self.tracks[n].span
             sectors = span.last_sector - span.first_sector + 1

@@ -14,9 +14,12 @@ restart, so a unit decodes alike wherever it stands.  The pool is
 synthesised once per configuration (``pool_seed``) and cached; each track
 is a seed-drawn order of the pool in which every unit appears equally
 often, so that every seed gives the decoder the same work in another
-order.  PCM tracks carry random sample bytes drawn from the seed; a
-configuration with ``encrypted`` true CPPM-encrypts every sector under a
-media key and album id drawn from the seed.
+order.  PCM tracks carry random sample bytes drawn from the seed.
+
+A configuration with ``encrypted`` true, of either codec, CPPM-encrypts
+every audio sector under a media key and album id drawn from the seed
+before anything else the album draws; an album without it draws no keys,
+so its bytes do not depend on the key draw.
 """
 
 from __future__ import annotations
@@ -33,7 +36,8 @@ from ..fmt.params import (BPS_CODE, MLP_CODEC_ID, PCM_CODEC_ID,
                           PTS_PER_SECOND, RATE_CODE, unpack_channel_count)
 from .mlp_synth import MlpSynthConfig, synth_mlp_stream
 
-__all__ = ["Album", "Track", "make_album", "mlp_pool", "pcm_chunk_size"]
+__all__ = ["Album", "Track", "make_album", "mlp_pool", "mlp_track_sectors",
+           "pcm_chunk_size"]
 
 SECTOR = 2048
 
@@ -276,42 +280,63 @@ def _mlp_album(cfg: dict, rng: np.random.Generator, audio_ts: str,
     if per_track % k:
         raise ValueError(f"{per_track} units a track is no multiple of the "
                          f"pool's {k}")
-    tracks, sectors, pts = [], [], []
+    album = Album(audio_ts, cfg, [], pool=pool)
+    _draw_keys(album, rng)
+    sectors, pts = [], []
     for _ in range(cfg["tracks"]):
         layout = rng.permutation(np.repeat(np.arange(k), per_track // k))
-        stream = np.frombuffer(b"".join([pool[u] for u in layout]), np.uint8)
-        sectors.append(_mlp_sectors(stream))
+        sectors.append(_encrypt(album, mlp_track_sectors(pool, layout)))
         frames = per_track * unit_frames(cfg)
-        tracks.append(Track(frames, layout=layout))
+        album.tracks.append(Track(frames, layout=layout))
         pts.append(int(round(frames * PTS_PER_SECOND / cfg["sample_rate"])))
     _write_disc(audio_ts, sectors, pts)
-    return Album(audio_ts, cfg, tracks, pool=pool)
+    return album
+
+
+def mlp_track_sectors(pool: list, layout: np.ndarray) -> np.ndarray:
+    """The plain sectors of an MLP track: the pool's units in ``layout``
+    order, as one stream."""
+    return _mlp_sectors(np.frombuffer(b"".join([pool[u] for u in layout]),
+                                      np.uint8))
+
+
+def _draw_keys(album: Album, rng: np.random.Generator) -> None:
+    """Draw the disc's media key and album id where the configuration
+    is encrypted (nothing otherwise)."""
+    if album.config.get("encrypted"):
+        album.media_key = int(rng.integers(0, 1 << 56, dtype=np.uint64))
+        album.album_id = int(rng.integers(0, 1 << 63, dtype=np.uint64))
+
+
+def _encrypt(album: Album, sec: np.ndarray) -> np.ndarray:
+    """One track's sectors, CPPM-encrypted in place under the album's
+    keys where the configuration is encrypted, on the card where there
+    is one."""
+    if not album.config.get("encrypted"):
+        return sec
+    import torch
+
+    from .c2 import encrypt_sectors
+
+    dev = "cuda" if torch.cuda.is_available() else "cpu"
+    step = 1 << 15  # sectors a pass: about 0.5 GB of int64 words
+    for lo in range(0, sec.shape[0], step):
+        part = torch.from_numpy(sec[lo:lo + step]).to(dev)
+        sec[lo:lo + step] = encrypt_sectors(
+            part, album.media_key, album.album_id).cpu().numpy()
+    return sec
 
 
 def _pcm_album(cfg: dict, rng: np.random.Generator, audio_ts: str) -> Album:
-    import torch
-
     frames = cfg["track_seconds"] * cfg["sample_rate"]
     csize = pcm_chunk_size(cfg)
     album = Album(audio_ts, cfg, [])
-    if cfg["encrypted"]:
-        album.media_key = int(rng.integers(0, 1 << 56, dtype=np.uint64))
-        album.album_id = int(rng.integers(0, 1 << 63, dtype=np.uint64))
+    _draw_keys(album, rng)
     sectors, pts = [], []
     for _ in range(cfg["tracks"]):
         chunks = np.frombuffer(rng.bytes(frames // 2 * csize),
                                np.uint8).reshape(-1, csize)
-        sec = _pcm_sectors(cfg, chunks)
-        if cfg["encrypted"]:
-            from .c2 import encrypt_sectors
-
-            dev = "cuda" if torch.cuda.is_available() else "cpu"
-            step = 1 << 15  # sectors a pass: about 0.5 GB of int64 words
-            for lo in range(0, sec.shape[0], step):
-                part = torch.from_numpy(sec[lo:lo + step]).to(dev)
-                sec[lo:lo + step] = encrypt_sectors(
-                    part, album.media_key, album.album_id).cpu().numpy()
-        sectors.append(sec)
+        sectors.append(_encrypt(album, _pcm_sectors(cfg, chunks)))
         album.tracks.append(Track(frames, chunks=chunks))
         pts.append(frames * PTS_PER_SECOND // cfg["sample_rate"])
     _write_disc(audio_ts, sectors, pts)

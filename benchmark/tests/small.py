@@ -35,9 +35,10 @@ def small(cell: str) -> dict:
 
 
 def run_small(cell: str, seed: int = 2147483999, seconds: float = 4.0,
-              trace: bool = False) -> dict:
+              trace: bool = False, **config) -> dict:
     """One run of ``cell`` on the CPU (the kernels' plain versions) at a
-    small size, in this process."""
+    small size, in this process; ``config``: configuration keys replaced
+    besides the size."""
     from benchmark.harness import run_cell
     from benchmark.trace import Capture
 
@@ -46,4 +47,5 @@ def run_small(cell: str, seed: int = 2147483999, seconds: float = 4.0,
     with with_unlisted():
         return run_cell(cell, seed, seconds, trace, time.perf_counter(),
                         require_cuda=False, capture=capture,
-                        overrides=small(cell), traffic_overrides=SHORT)
+                        overrides=dict(small(cell), **config),
+                        traffic_overrides=SHORT)

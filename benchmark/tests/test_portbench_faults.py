@@ -14,9 +14,17 @@ from benchmark.tests.small import run_small
 CELLS = ["mlp51_96k24.rip", "pcm20_192k24_cppm.rip", "mlp51_96k24.seek"]
 
 
-@pytest.mark.parametrize("cell", CELLS)
-def test_sound_runs_are_correct(cell):
-    r = run_small(cell)
+#: an encrypted MLP album (one track, so that a short window checks it
+#: whole): the CPPM hook in front of the MLP path
+ENCRYPTED_MLP = {"encrypted": True, "key_source": "seed", "tracks": 1}
+
+
+@pytest.mark.parametrize("cell,config", [pytest.param(c, {}, id=c)
+                                         for c in CELLS] + [
+    pytest.param("mlp51_96k24.rip", ENCRYPTED_MLP,
+                 id="mlp51_96k24.rip-encrypted")])
+def test_sound_runs_are_correct(cell, config):
+    r = run_small(cell, seconds=0.5 if config else 4.0, **config)
     assert r["correct"] and r["failed"] == 0 and r["attempted"] > 0
     assert all(c["value"] <= c["limit"] for c in r["checks"].values())
 
@@ -91,3 +99,19 @@ def test_a_decode_that_raises_is_counted(monkeypatch):
     monkeypatch.setattr(TrackReader, "read_all_packed", boom)
     r = run_small("pcm20_192k24_cppm.rip", seconds=0.5)
     assert not r["correct"] and r["failed"] == r["attempted"] > 0
+
+
+def test_an_encrypted_mlp_rip_with_a_sector_altered_is_not_correct(
+        monkeypatch):
+    from dvda_tpu_torch.cppm.decrypt import CppmDecryptor
+
+    orig = CppmDecryptor.decrypt_sectors
+
+    def altered(self, sectors):  # one payload byte of each batch
+        out = orig(self, sectors)
+        out[out.shape[0] // 2, 1024] ^= 0x40
+        return out
+
+    monkeypatch.setattr(CppmDecryptor, "decrypt_sectors", altered)
+    r = run_small("mlp51_96k24.rip", seconds=0.5, **ENCRYPTED_MLP)
+    assert not r["correct"]

@@ -249,3 +249,26 @@ def test_kernels_are_taken_by_the_range_of_their_launch(lost_launch):
     else:
         # 3.35 kB take 1 ns at 3.35 TB/s, over 2 us of hook kernels
         assert t.unattributed is None and got == pytest.approx(0.05)
+
+
+@pytest.mark.parametrize("lost_launch", [False, True])
+@pytest.mark.parametrize("encrypted", [False, True])
+def test_mlp_roofline_leaves_out_the_cppm_hook(lost_launch, encrypted):
+    from benchmark.harness import _reader
+    from benchmark.trace import read_events
+
+    run = RunContext("fake", {}, {}, 1, True, "/nonexistent")
+    run.trace_result = read_events(_capture(lost_launch), {})
+    run.device_kind = "NVIDIA H100 80GB HBM3"
+    run.work = {"mlp": {"bytes": 3.35e3, "ops": 0.0}}
+    if encrypted:
+        run.work["cppm"] = {"bytes": 3.35e3, "ops": 0.0}
+    got = _reader("mlp_kernel_roofline")(run)
+    if not encrypted:
+        # a plain disc: every kernel record, tied to a launch or not
+        assert got == pytest.approx(100 / (2_600 + 100 * lost_launch))
+    elif lost_launch:
+        assert got is None
+    else:
+        # 1 ns of work over the 600 ns of kernels launched outside the hook
+        assert got == pytest.approx(100 / 600)

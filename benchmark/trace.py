@@ -199,33 +199,66 @@ def _gate(records: list, launches: dict) -> str | None:
 
 def _label_gaps(busy: list, w0: int, w1: int, cpu: list) -> list:
     """Idle time in the window, summed by what the main thread was doing
-    meanwhile: each part of a gap by the innermost benchmark range that
-    holds it ("outside" where none does) and the innermost operation at
-    the part's middle.  The ten largest sums, in seconds."""
-    spans = sorted((lo, hi, name) for lo, hi, name, ours in cpu if ours)
+    meanwhile: each part of a gap by the innermost range that holds it
+    ("outside" where none does) and the innermost operation at the
+    part's middle.  The ten largest sums, in seconds.
+
+    The ranges are exact however many a long one holds: the window is
+    cut where a range starts or ends, and one sweep over the cuts keeps
+    the stack of open ranges, whose top labels the piece up to the next
+    cut.  The operation suffix keeps :func:`_innermost`'s bounded
+    look-back over the operations."""
+    spans = [(lo, hi, name) for lo, hi, name, ours in cpu if ours]
     ops = sorted((lo, hi, name) for lo, hi, name, ours in cpu if not ours)
-    # the window cut where a benchmark range starts or ends
+    # the window cut where a range starts or ends
     cuts = sorted({w0, w1} | {x for lo, hi, _ in spans for x in (lo, hi)
                               if w0 < x < w1})
+    labels = _open_ranges(spans, cuts)
     edges = [w0] + [x for iv in busy for x in iv] + [w1]
     totals = defaultdict(int)
     for lo, hi in zip(edges[0::2], edges[1::2]):
         a, i = lo, bisect.bisect_right(cuts, lo)
         while a < hi:
             b = min(cuts[i], hi) if i < len(cuts) else hi
-            mid = (a + b) // 2
-            label = _innermost(spans, mid) or "outside"
-            op = _innermost(ops, mid)
+            op = _innermost(ops, (a + b) // 2)
+            label = labels[i - 1]
             totals[f"{label} > {op}" if op else label] += b - a
             a, i = b, i + 1
     return [[n, t / 1e9] for n, t in sorted(
         totals.items(), key=lambda kv: -kv[1])[:10]]
 
 
+def _open_ranges(spans: list, cuts: list) -> list:
+    """For each piece ``[cuts[k], cuts[k + 1])`` of the window, the name
+    of the innermost range of ``spans`` (one thread's ranges) that holds
+    it, or "outside".  A range that holds a piece starts at or before its
+    cut and ends at or after the next; of ranges that start together the
+    shorter is the inner one."""
+    starts = sorted((s for s in spans if s[1] > s[0]),
+                    key=lambda s: (s[0], -s[1]))
+    ends = sorted(range(len(starts)), key=lambda j: starts[j][1])
+    stack, closed, out = [], [False] * len(starts), []
+    i = e = 0
+    for cut in cuts[:-1]:
+        while e < len(ends) and starts[ends[e]][1] <= cut:
+            closed[ends[e]] = True
+            e += 1
+        while i < len(starts) and starts[i][0] <= cut:
+            stack.append(i)
+            i += 1
+        # a closed range below the top (ranges that do not nest) goes
+        # once the top reaches it
+        while stack and closed[stack[-1]]:
+            stack.pop()
+        out.append(starts[stack[-1]][2] if stack else "outside")
+    return out
+
+
 def _innermost(events: list, t: int, depth: int = 64) -> str | None:
     """The name of the latest-starting event of ``events`` (sorted by
     start) that holds ``t``: on one thread's nested ranges, the innermost
-    (the search looks back ``depth`` events)."""
+    (the search looks back ``depth`` events: enough for the operations;
+    the ranges are labelled by :func:`_open_ranges`)."""
     i = bisect.bisect_right(events, (t, float("inf"), "")) - 1
     for j in range(i, max(-1, i - depth), -1):
         if events[j][1] >= t:
