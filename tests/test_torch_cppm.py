@@ -3,7 +3,8 @@ C2 D-CBC and content keys against dvda_tpu/ops/c2_decrypt.py (jitted on
 the CPU), kernel K7's plain version against dvda_tpu's host decryptor,
 the vectorised test encryptor against the scalar one, and encrypted discs
 through the port's reader, ``open_disc(path, device=<drive>)`` and
-``decode_disc``."""
+``decode_disc``; an encrypted MLP track through the native assembler in
+short batches."""
 
 import os
 
@@ -23,7 +24,10 @@ from dvda_tpu.ops.c2_decrypt import content_keys_device as jax_keys
 from dvda_tpu.ops.c2_decrypt import dcbc_dec_device as jax_dcbc
 from dvda_tpu_torch import DecodeConfig, open_disc
 from dvda_tpu_torch.api import TrackReader
+from dvda_tpu_torch import host as torch_host
 from dvda_tpu_torch.batch import decode_disc
+from dvda_tpu_torch.codecs.mlp.native_engine import decode_native
+from dvda_tpu_torch.container.aob import AOBReader as TorchAOBReader
 from dvda_tpu_torch.cppm import css
 from dvda_tpu_torch.cppm.decrypt import CppmDecryptor
 from dvda_tpu_torch.ops.c2_decrypt import (content_keys_device,
@@ -179,6 +183,57 @@ def test_encrypted_disc_decodes(tmp_path):
         r = TrackReader(AOBReader(layout.path, 1, decrypt=dec.decrypt_sectors),
                         t, config=CPU)
         assert r.read_all_packed() == bytes(plain_packed[n - 1])
+
+
+@native
+def test_encrypted_mlp_assembly_in_batches(tmp_path):
+    """An encrypted MLP track through ``host.assemble_mlp_stream`` in
+    batches of 8 sectors (four whole and a short tail): the hook runs once
+    for each batch the assembler reads, the stream, boundaries and probe
+    length equal the plain disc's, and its decode equals dvda_tpu's plain
+    one.  The benchmark's ``cppm_kernel_roofline`` on an encrypted MLP
+    album counts this batching."""
+    mlp = MlpSynthConfig(channel_assignment=17, substream_count=2,
+                         sample_rate=96000, n_frames=320, seed=6,
+                         fir_across_restart=False, params_update_prob=0.0)
+    layout = build_disc(str(tmp_path / "AUDIO_TS"), [[MlpTrackSpec(
+        mlp_stream=synth_mlp_stream(mlp), pcm_frames=mlp.total_pcm_frames,
+        sample_rate=96000, channel_assignment=17)]])
+    want = JaxDVDA(layout.path).open_titleset(1).open_title(1).open_track(
+        1).open_reader(use_device=False).read_all_packed()
+    track = open_disc(layout.path, config=CPU).open_titleset(1) \
+        .open_title(1).open_track(1)
+    first, last = track.span.first_sector, track.span.last_sector
+    plain = torch_host.assemble_mlp_stream(
+        TorchAOBReader(layout.path, 1), first, last, batch=8)
+    _encrypt_aob(layout)
+    dec = CppmDecryptor(MEDIA_KEY, ALBUM, config=CPU)
+    hooked = []
+
+    def hook(sectors):
+        hooked.append(sectors.shape[0])
+        return dec.decrypt_sectors(sectors)
+
+    aob = TorchAOBReader(layout.path, 1, decrypt=hook)
+    read, reads = aob.read_sectors, []
+
+    def counted(first, count):
+        out = read(first, count)
+        reads.append(out.shape[0])
+        return out
+
+    aob.read_sectors = counted
+    stream, bounds, probe_end = torch_host.assemble_mlp_stream(
+        aob, first, last, batch=8)
+    assert stream == plain[0] and probe_end == plain[2]
+    assert np.array_equal(bounds, plain[1])
+    assert hooked == [n for n in reads if n] == [8, 8, 8, 8, 2]
+    params = TrackReader(TorchAOBReader(layout.path, 1,
+                                        decrypt=dec.decrypt_sectors),
+                         track, config=CPU).parameters
+    out = decode_native(stream, bounds, probe_end, params, want_packed=True,
+                        config=CPU)
+    assert out.tobytes() == bytes(want)
 
 
 class _Drive(css.MockDrive):
