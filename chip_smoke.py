@@ -639,7 +639,7 @@ def _pcm_track_chunks(layout, track: int):
               .open_title(1).open_track(track).open_reader())
     chunks = reader._pcm_chunks()
     _require(chunks is not None, f"track {track}: no PCM chunks")
-    return chunks, reader.bits_per_sample, reader.channel_count
+    return chunks.numpy(), reader.bits_per_sample, reader.channel_count
 
 
 def phase_kernels(stream, plain, enc_path):
@@ -1744,15 +1744,24 @@ def phase_cppm(plain, enc_path: str, n_sectors: int, smi: str):
         return host_track_bytes(AOBReader(enc_path, 1, decrypt=host_hook),
                                 track, threads)
 
+    walks = TrackReader._pcm_on_device
     for fn in counters.values():
         fn.launches = 0
     output_stage.narrow_launches = 0
+    walks.pcm_walks_in_place = walks.pcm_walks_staged = 0
     got, readers = zip(*(port(t) for t in tracks))
     wav_dir = os.path.join(os.path.dirname(os.path.dirname(enc_path)),
                            "wavs")
     written = disc_to_wavs(plain.path, wav_dir, config=conf)
     launches = {k: fn.launches for k, fn in counters.items()}
     launches["output_stage_narrow"] = output_stage.narrow_launches
+    # each PCM track decoded twice (the port, then disc_to_wavs), every
+    # time K8 reading the walk's own pinned buffer
+    pcm_decodes = 2 * sum(r.codec == "PCM" for r in readers)
+    _require(walks.pcm_walks_in_place == pcm_decodes
+             and walks.pcm_walks_staged == 0,
+             f"the PCM walks: {walks.pcm_walks_in_place} in place, "
+             f"{walks.pcm_walks_staged} staged, of {pcm_decodes} decodes")
     K1A_PATHS["cppm"] = launches["mlp_filter_arena"]
     # the MLP track reads back narrow (the default): K234n, not K234
     _require(launches["c2_decrypt"] >= 10 and launches["pcm_unpack"] >= 2
@@ -1783,13 +1792,14 @@ def phase_cppm(plain, enc_path: str, n_sectors: int, smi: str):
     print(f"[cppm] encrypted disc, 3 tracks through the port on the card == "
           f"the host path on the plaintext disc ({sum(sizes)} bytes); "
           f"disc_to_wavs on the plaintext copy: 3 WAVs identical")
-    print(f"[cppm] launches {launches}")
+    print(f"[cppm] launches {launches}; PCM walks in place "
+          f"{walks.pcm_walks_in_place}, staged {walks.pcm_walks_staged}")
 
     # walls: best of 3, port and host path interleaved, per track
     print(f"[cppm] {smi}; {n_sectors} sectors, per track best of 3 "
           f"interleaved (decrypt = seconds inside the sector hook; stages "
-          f"of the port's best run, the PCM unpack stage = pinned copy, "
-          f"h2d, K8, d2h):")
+          f"of the port's best run, the PCM unpack stage = h2d from the "
+          f"walk's pinned buffer, K8, d2h):")
     for n, track in enumerate(tracks, 1):
         best = {}
         for _ in range(3):

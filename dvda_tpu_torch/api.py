@@ -298,12 +298,9 @@ class TrackReader:
         if cfg.use_native_demux:
             # native packet walk (host/src/demux.cc); the loop below is its
             # executable specification and differential-test oracle
-            data = host.assemble_pcm_chunks(self.aob, span.first_sector,
-                                            self.parameters, total, csize)
-            if data is not None:
-                chunks = np.frombuffer(data, dtype=np.uint8)
-                return self._unpack_pcm_chunks(
-                    chunks.reshape(-1, csize), bps, ch)
+            chunks = self._pcm_walk()
+            if chunks is not None:
+                return self._unpack_pcm_chunks(chunks, bps, ch)
         chunk_arrays: list[np.ndarray] = []
         remaining = total
         sector = span.first_sector
@@ -347,42 +344,64 @@ class TrackReader:
         return self._unpack_pcm_chunks(
             np.concatenate(chunk_arrays, axis=0), bps, ch)
 
-    def _pcm_on_device(self, chunks: np.ndarray, bps: int, ch: int,
-                       nbytes: int) -> np.ndarray:
-        """K8 over a host chunk batch on the decode device: upload from
-        pinned memory, unpack, one d2h."""
+    def _pcm_on_device(self, chunks: torch.Tensor | np.ndarray, bps: int,
+                       ch: int, nbytes: int) -> np.ndarray:
+        """K8 over a host chunk batch on the decode device, then one d2h.
+        A tensor is the native walk's own buffer (:meth:`_pcm_walk`,
+        pinned on CUDA): the h2d reads it in place.  An array, the Python
+        loop's, is staged: copied into pinned memory on CUDA, into a fresh
+        tensor on the CPU."""
         dev = self._cfg().resolved_device()
+        walks = TrackReader._pcm_on_device
         with global_timer.stage("pcm/unpack"):
-            if dev.type == "cuda":
+            if isinstance(chunks, torch.Tensor):
+                walks.pcm_walks_in_place += 1
+                t = chunks.to(dev, non_blocking=True)
+            elif dev.type == "cuda":
+                walks.pcm_walks_staged += 1
                 t = torch.empty(chunks.shape, dtype=torch.uint8,
                                 pin_memory=True)
                 t.numpy()[...] = chunks
                 t = t.to(dev, non_blocking=True)
             else:
+                walks.pcm_walks_staged += 1
                 t = torch.from_numpy(np.array(chunks, np.uint8))
             return decode_chunks_device(t, bps, ch, nbytes).cpu().numpy()
 
-    def _unpack_pcm_chunks(self, all_chunks: np.ndarray, bps: int,
-                           ch: int) -> np.ndarray:
+    def _unpack_pcm_chunks(self, all_chunks: torch.Tensor | np.ndarray,
+                           bps: int, ch: int) -> np.ndarray:
         return self._pcm_on_device(all_chunks, bps, ch, 0)
 
-    def _pcm_chunks(self) -> np.ndarray | None:
-        """The PCM track's chunk batch, uint8 ``[n, csize]``, as
-        ``_pcm_packed_native`` assembles it (native packet walk, every frame
-        of the consumed packets).  None when the native walk is unavailable
-        or gives no whole chunk."""
+    def _pcm_walk(self) -> torch.Tensor | None:
+        """The native packet walk (host/src/demux.cc) over the track:
+        uint8 ``[n, csize]``, every whole chunk of the consumed packets,
+        each written once, at its final offset, into one buffer sized up
+        front (``host.pcm_walk_capacity``).  The buffer is pinned when
+        the decode device is CUDA, so K8's h2d uploads straight from it.
+        None when the native library is unavailable."""
         span = self.track.span
         params = self.parameters
         csize = pcm_codec.chunk_size(params.bits_per_sample,
                                      params.channel_count)
         total = round(span.pts_length * params.sample_rate / PTS_PER_SECOND)
+        pinned = self._cfg().resolved_device().type == "cuda"
         with global_timer.stage("pcm/assemble"):
-            data = host.assemble_pcm_chunks(self.aob, span.first_sector,
-                                            params, total, csize)
-        if data is None or len(data) < csize:
+            buf = torch.empty(
+                host.pcm_walk_capacity(self.aob, span.first_sector, total,
+                                       csize),
+                dtype=torch.uint8, pin_memory=pinned)
+            n = host.walk_pcm_chunks(self.aob, span.first_sector, params,
+                                     total, csize, buf.numpy())
+        if n is None:
             return None
-        n = len(data) // csize
-        return np.frombuffer(data, np.uint8, n * csize).reshape(n, csize)
+        return buf[:n].view(n // csize, csize)
+
+    def _pcm_chunks(self) -> torch.Tensor | None:
+        """The PCM track's chunk batch of :meth:`_pcm_walk`, the native
+        walk's own buffer.  None when the native walk is unavailable or
+        gives no whole chunk."""
+        chunks = self._pcm_walk()
+        return chunks if chunks is not None and chunks.shape[0] else None
 
     def _pcm_packed(self) -> bytes | None:
         """PCM disc-to-WAV: the chunks of :meth:`_pcm_chunks`, with K8
@@ -565,6 +584,12 @@ class TrackReader:
 
     def close(self) -> None:
         self.aob.close()
+
+
+#: PCM decodes since the last reset whose chunks K8 read from the native
+#: walk's own buffer, and those that went through a staging copy
+TrackReader._pcm_on_device.pcm_walks_in_place = 0
+TrackReader._pcm_on_device.pcm_walks_staged = 0
 
 
 def open_disc(audio_ts_path: str | os.PathLike, device: str | None = None,

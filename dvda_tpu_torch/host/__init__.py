@@ -730,13 +730,35 @@ def assemble_mlp_stream(aob, first_sector: int, last_sector: int,
     return bytes(stream[: int(state[1])]), out, int(state[2])
 
 
-def assemble_pcm_chunks(aob, first_sector: int, parameters, total_frames: int,
-                        csize: int, batch: int = 4096) -> bytes | None:
-    """Native PCM packet walk (src/demux.cc:dvda_pcm_feed): concatenated
-    whole chunks of every consumed packet, honoring the PTS frame
-    countdown and codec/parameter-match termination.  Semantics mirror
-    api.py:TrackReader._decode_pcm; ``None`` when the library is
-    unavailable."""
+def pcm_walk_capacity(aob, first_sector: int, total_frames: int,
+                      csize: int) -> int:
+    """Bytes :func:`walk_pcm_chunks` can write, a bound it never passes.
+    Before the packet that ends the countdown the walk has written fewer
+    than ``ceil(total_frames / 2)`` chunks (two frames a chunk); that
+    packet, inside one sector, adds at most ``2048 // csize``.  Nor can it
+    write more than the sectors from ``first_sector`` to the end of
+    ``aob`` hold."""
+    cap = ((max(int(total_frames), 0) + 1) // 2 + 2048 // csize) * csize
+    sectors = max(int(aob.total_sectors) - int(first_sector), 0)
+    return min(cap, sectors * 2048 // csize * csize)
+
+
+def walk_pcm_chunks(aob, first_sector: int, parameters, total_frames: int,
+                    csize: int, out: np.ndarray,
+                    batch: int = 4096) -> int | None:
+    """Native PCM packet walk (src/demux.cc:dvda_pcm_feed): every consumed
+    packet's whole chunks, written once each, in order, into ``out`` (a
+    writable C-contiguous uint8 array), honoring the PTS frame countdown
+    and codec/parameter-match termination.  Semantics mirror
+    api.py:TrackReader._decode_pcm.  Returns the bytes written, a
+    multiple of ``csize``; the bytes past them are left as they were.
+    ``None`` when the library is unavailable; raises where ``out`` is
+    smaller than the walk needs (:func:`pcm_walk_capacity` always
+    suffices)."""
+    if not (out.dtype == np.uint8 and out.ndim == 1
+            and out.flags.c_contiguous and out.flags.writeable):
+        raise ValueError("PCM walk: the destination must be a writable "
+                         "C-contiguous 1-D uint8 array")
     lib = _load()
     if lib is None:
         return None
@@ -746,8 +768,6 @@ def assemble_pcm_chunks(aob, first_sector: int, parameters, total_frames: int,
     b6 = parameters.channel_assignment
     state = np.zeros(4, dtype=np.int64)
     state[2] = total_frames
-    chunks: list[bytes] = []
-    out = np.empty(batch * 2048, dtype=np.uint8)
     sector = first_sector
     while not state[0]:
         sectors = aob.read_sectors(sector, batch)
@@ -755,19 +775,31 @@ def assemble_pcm_chunks(aob, first_sector: int, parameters, total_frames: int,
         if n == 0:
             break
         sectors = np.ascontiguousarray(sectors)
-        state[1] = 0
+        # the feed appends at out + state[1] and checks the capacity
         rc = lib.dvda_pcm_feed(
             state.ctypes.data_as(c.c_void_p),
             sectors.ctypes.data_as(c.c_void_p), n, b3, b4, b6, csize,
             out.ctypes.data_as(c.c_void_p), out.shape[0])
         if rc != 0:
-            return None  # cannot happen (cap ≥ payload bytes); be safe
-        if state[1]:
-            chunks.append(out[: int(state[1])].tobytes())
+            raise RuntimeError(
+                f"PCM walk: a packet past the destination's {out.shape[0]} "
+                f"bytes (sector {sector}..{sector + n - 1})")
         sector += n
         if n < batch:
             break
-    return b"".join(chunks)
+    return int(state[1])
+
+
+def assemble_pcm_chunks(aob, first_sector: int, parameters, total_frames: int,
+                        csize: int, batch: int = 4096) -> bytes | None:
+    """:func:`walk_pcm_chunks` into a buffer of its bound, as ``bytes``:
+    the concatenated whole chunks of every consumed packet.  ``None`` when
+    the library is unavailable."""
+    out = np.empty(pcm_walk_capacity(aob, first_sector, total_frames, csize),
+                   dtype=np.uint8)
+    n = walk_pcm_chunks(aob, first_sector, parameters, total_frames, csize,
+                        out, batch)
+    return None if n is None else out[:n].tobytes()
 
 
 def c2_decrypt_sectors(sectors: np.ndarray, media_key: int, album_id: int,

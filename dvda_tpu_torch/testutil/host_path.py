@@ -29,6 +29,7 @@ def host_track_bytes(aob, track, threads: int) -> bytes:
         if chunks is None:
             raise RuntimeError(f"host path: track {track.number} gave no "
                                "PCM chunks")
+        chunks = chunks.numpy()
         bits, ch = reader.bits_per_sample, reader.channel_count
         nb = bits // 8
         table = pcm_gather_indices(bits, ch)[:, :nb].reshape(-1)

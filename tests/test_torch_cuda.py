@@ -629,6 +629,49 @@ def test_pcm_unpack_rejects_misaligned(dev):
     assert decode_chunks_device.launches == before
 
 
+def test_pcm_walk_uploads_in_place(dev, tmp_path, monkeypatch):
+    """On the card the native walk writes into pinned memory and K8's
+    h2d reads that same storage: no second pinned tensor, no staging
+    copy; ``read_all_packed()`` equals the CPU decode."""
+    spec = PcmTrackSpec(pcm_frames=9600, seed=5, sample_rate=96000,
+                        bits_per_sample=24, channel_assignment=17)
+    layout = build_disc(str(tmp_path / "AUDIO_TS"), [[spec]])
+
+    def reader(device):
+        return open_disc(layout.path, config=DecodeConfig(device=device)) \
+            .open_titleset(1).open_title(1).open_track(1).open_reader()
+
+    want = reader("cpu").read_all_packed()
+    pinned, uploads = [], []
+    empty, to = torch.empty, torch.Tensor.to
+
+    def spy_empty(*args, **kw):
+        out = empty(*args, **kw)
+        if kw.get("pin_memory"):
+            pinned.append(out.data_ptr())
+        return out
+
+    def spy_to(self, *args, **kw):
+        if self.device.type == "cpu":
+            uploads.append((self.data_ptr(), self.is_pinned()))
+        return to(self, *args, **kw)
+
+    monkeypatch.setattr(torch, "empty", spy_empty)
+    monkeypatch.setattr(torch.Tensor, "to", spy_to)
+    walks = TrackReader._pcm_on_device
+    monkeypatch.setattr(walks, "pcm_walks_in_place", 0)
+    monkeypatch.setattr(walks, "pcm_walks_staged", 0)
+    r = reader("cuda")
+    chunks = r._pcm_chunks()
+    assert chunks.is_pinned() and pinned == [chunks.data_ptr()]
+    out = r._pcm_on_device(chunks, 24, r.channel_count, 3)
+    assert uploads == [(chunks.data_ptr(), True)] and len(pinned) == 1
+    assert out.tobytes() == want
+    assert reader("cuda").read_all_packed() == want
+    assert len(pinned) == 2 and len(uploads) == 2
+    assert (walks.pcm_walks_in_place, walks.pcm_walks_staged) == (2, 0)
+
+
 def _mix_disc(path):
     mlp = MlpSynthConfig(channel_assignment=17, substream_count=2,
                          sample_rate=96000, n_frames=48, seed=6,

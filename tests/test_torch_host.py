@@ -19,6 +19,7 @@ from dvda_tpu import host as jax_host
 from dvda_tpu.container.aob import AOBReader as JaxAOBReader
 from dvda_tpu_torch import host
 from dvda_tpu_torch.codecs.mlp import native_engine as pe
+from dvda_tpu_torch.codecs.params import PTS_PER_SECOND
 from dvda_tpu_torch.codecs.pcm import chunk_size, pcm_gather_indices
 from dvda_tpu_torch.container.aob import AOBReader
 from dvda_tpu_torch.testutil import (MlpSynthConfig, MlpTrackSpec,
@@ -125,17 +126,18 @@ def disc(tmp_path_factory):
         PcmTrackSpec(pcm_frames=1920, seed=1)]])
 
 
-def _spans(path):
+def _spans(path, tracks=(1, 2, 3)):
     import dvda_tpu_torch
 
     title = (dvda_tpu_torch.open_disc(path, config=dvda_tpu_torch.
                                       DecodeConfig(device="cpu"))
              .open_titleset(1).open_title(1))
-    return [title.open_track(n).open_reader() for n in (1, 2, 3)]
+    return [title.open_track(n).open_reader() for n in tracks]
 
 
 def test_demux_identical(disc):
-    """MLP stream assembly and the PCM packet walk, batch by batch."""
+    """MLP stream assembly, batch by batch (the PCM packet walk:
+    ``test_pcm_walk_identical``)."""
     readers = _spans(disc.path)
     span = readers[1].track.span
     for batch in (4096, 3):
@@ -147,16 +149,57 @@ def test_demux_identical(disc):
                                             span.last_sector, batch)
         assert got[0] == want[0] and len(got[0]) > 0
         assert _equal(got[1], want[1]) and got[2] == want[2]
-    for r in (readers[0], readers[2]):
-        p, sp = r.parameters, r.track.span
-        csize = chunk_size(p.bits_per_sample, p.channel_count)
-        total = r.parameters.sample_rate  # more than the track holds
-        got = host.assemble_pcm_chunks(AOBReader(disc.path, 1),
-                                       sp.first_sector, p, total, csize, 5)
-        want = jax_host.assemble_pcm_chunks(JaxAOBReader(disc.path, 1),
-                                            sp.first_sector, p, total, csize,
-                                            5)
-        assert got == want and len(got) >= csize
+
+
+@pytest.fixture(scope="module")
+def pcm_pair_disc(tmp_path_factory):
+    """Two PCM tracks of different parameters, back to back: a walk past
+    the first track's end stops at the parameter change."""
+    return build_disc(str(tmp_path_factory.mktemp("pcm2") / "AUDIO_TS"), [[
+        PcmTrackSpec(pcm_frames=1920, seed=3),
+        PcmTrackSpec(pcm_frames=960, seed=4, sample_rate=96000,
+                     bits_per_sample=24, channel_assignment=17)]])
+
+
+@pytest.mark.parametrize("total", ["past", "track", 1, 0])
+@pytest.mark.parametrize("batch", [4096, 5, 1])
+@pytest.mark.parametrize("walk", ["codec_change", "aob_end",
+                                  "parameter_change"])
+def test_pcm_walk_identical(disc, pcm_pair_disc, walk, batch, total):
+    """The in-place PCM packet walk into a destination of exactly
+    ``pcm_walk_capacity`` bytes against dvda_tpu's ``assemble_pcm_chunks``:
+    a PCM track followed by an MLP one (the walk ends on the codec
+    change), the disc's last track (the walk ends with the AOB) and a PCM
+    track followed by one of other parameters; a countdown past the
+    track's end, exactly the track, 1 frame and 0 (one packet).  The bytes
+    past the written count stay as they were; one chunk less room, or a
+    read-only destination, raises."""
+    path, n = {"codec_change": (disc.path, 1), "aob_end": (disc.path, 3),
+               "parameter_change": (pcm_pair_disc.path, 1)}[walk]
+    r, = _spans(path, (n,))
+    p, first = r.parameters, r.track.span.first_sector
+    csize = chunk_size(p.bits_per_sample, p.channel_count)
+    frames = round(r.track.span.pts_length * p.sample_rate
+                   / PTS_PER_SECOND)  # the track's countdown
+    count = {"past": p.sample_rate, "track": frames}.get(total, total)
+    cap = host.pcm_walk_capacity(AOBReader(path, 1), first, count, csize)
+    dest = np.full(cap + 64, 0xA5, dtype=np.uint8)
+    got = host.walk_pcm_chunks(AOBReader(path, 1), first, p, count, csize,
+                               dest[:cap], batch)
+    want = jax_host.assemble_pcm_chunks(JaxAOBReader(path, 1), first, p,
+                                        count, csize, batch)
+    assert dest[:got].tobytes() == want and got % csize == 0
+    assert got >= csize and (dest[got:] == 0xA5).all()
+    assert host.assemble_pcm_chunks(AOBReader(path, 1), first, p, count,
+                                    csize, batch) == want
+    if total == "past" and walk != "aob_end":
+        assert got == frames // 2 * csize  # stopped at the change
+    with pytest.raises(RuntimeError, match="past the destination"):
+        host.walk_pcm_chunks(AOBReader(path, 1), first, p, count, csize,
+                             np.empty(got - csize, dtype=np.uint8), batch)
+    with pytest.raises(ValueError, match="writable C-contiguous"):
+        host.walk_pcm_chunks(AOBReader(path, 1), first, p, count, csize,
+                             np.frombuffer(bytes(cap), np.uint8), batch)
 
 
 @pytest.mark.parametrize("preserve_cci", [False, True])

@@ -18,7 +18,8 @@ from dvda_tpu.cli import dvda2wav as jax_dvda2wav
 from dvda_tpu.codecs.pcm import (chunk_size, decode_chunks_numpy,
                                  pcm_gather_indices)
 from dvda_tpu.ops.pcm_unpack import decode_chunks_device as jax_unpack
-from dvda_tpu_torch import DecodeConfig, open_disc
+from dvda_tpu_torch import DecodeConfig, api, open_disc
+from dvda_tpu_torch.api import TrackReader
 from dvda_tpu_torch.batch import decode_disc, disc_to_wavs
 from dvda_tpu_torch.cli import dvda2wav
 from dvda_tpu_torch.ops.pcm_unpack import decode_chunks_device
@@ -128,6 +129,49 @@ def test_pcm_reader_python_walk(tmp_path, bits):
     assert r.read_all_packed() == JaxDVDA(layout.path).open_titleset(1) \
         .open_title(1).open_track(1).open_reader(use_device=False) \
         .read_all_packed()
+
+
+@pytest.mark.skipif(not host.available(),
+                    reason="native host library unavailable")
+@pytest.mark.parametrize("bits", [16, 20, 24])
+def test_pcm_walk_in_place_matches_loop_walk(tmp_path, monkeypatch, bits):
+    """``read_all_packed()`` and ``read_all()`` through the native walk
+    equal the Python loop's (``use_native_demux=False``).  K8 reads the
+    storage the native walk wrote, counted once a decode in
+    ``pcm_walks_in_place``; only the loop walk's decodes count in
+    ``pcm_walks_staged``."""
+    layout = _pcm_disc(tmp_path, bits)
+    walked, unpacked = [], []
+    walk = TrackReader._pcm_walk
+
+    def spy_walk(self):
+        out = walk(self)
+        walked.append(out.data_ptr())
+        return out
+
+    def spy_unpack(chunks, *args):
+        unpacked.append(chunks.data_ptr())
+        return decode_chunks_device(chunks, *args)
+
+    monkeypatch.setattr(TrackReader, "_pcm_walk", spy_walk)
+    monkeypatch.setattr(api, "decode_chunks_device", spy_unpack)
+    walks = TrackReader._pcm_on_device
+    monkeypatch.setattr(walks, "pcm_walks_in_place", 0)
+    monkeypatch.setattr(walks, "pcm_walks_staged", 0)
+
+    def reader(**kw):
+        return open_disc(layout.path, config=DecodeConfig(
+            device="cpu", **kw)).open_titleset(1).open_title(1) \
+            .open_track(1).open_reader()
+
+    packed, samples = reader().read_all_packed(), reader().read_all()
+    assert (walks.pcm_walks_in_place, walks.pcm_walks_staged) == (2, 0)
+    assert unpacked == walked and len(walked) == 2
+    loop = dict(use_native_demux=False, io_batch_sectors=3)
+    assert reader(**loop).read_all_packed() == packed
+    assert np.array_equal(reader(**loop).read_all(), samples)
+    assert (walks.pcm_walks_in_place, walks.pcm_walks_staged) == (2, 2)
+    assert len(walked) == 2 and len(unpacked) == 4 and samples.shape[0]
 
 
 def _mixed_disc(tmp_path):
