@@ -85,9 +85,11 @@ Phases, each printing a line; any failure propagates (non-zero exit):
    ``AOBReader`` and the port's ``TrackReader(...).read_all_packed()``,
    and the plaintext copy through ``dvda_tpu_torch.batch.disc_to_wavs``,
    byte-compared with the port's C++ host path (the packet walk +
-   ``pcm_repack`` for PCM, host-complete for MLP); the counters, zeroed
-   before the phase, must show K7, K8, K1a and K234n launches; walls against
-   the host path (host C2);
+   ``pcm_repack`` for PCM, host-complete for MLP), and each PCM track
+   once more through ``read_all()`` (int32); the counters, zeroed before
+   the phase, must show K7, K8, K1a and K234n launches, every packed PCM
+   decode read back into the walk's pinned buffer and every int32 one
+   into pageable memory; walls against the host path (host C2);
 6b. tiers: the three short 24-bit streams of
    tests/test_mlp_native.py:728-765 (quiet, mid, loud) with narrow on and
    off in both modes, equal to host-complete; they settle at tiers 12, 16
@@ -1704,7 +1706,7 @@ def phase_cppm(plain, enc_path: str, n_sectors: int, smi: str):
     from dvda_tpu_torch.ops.rematrix import output_stage
     from dvda_tpu_torch.testutil import host_track_bytes
     from dvda_tpu_torch.utils.profiling import global_timer
-    from dvda_tpu_torch.utils.wav import wave_header
+    from dvda_tpu_torch.utils.wav import pack_samples_le, wave_header
 
     conf = DecodeConfig(device="cuda")
     counters = {"c2_decrypt": decrypt_sectors_device,
@@ -1741,19 +1743,31 @@ def phase_cppm(plain, enc_path: str, n_sectors: int, smi: str):
         fn.launches = 0
     output_stage.narrow_launches = 0
     walks.pcm_walks_in_place = walks.pcm_walks_staged = 0
+    walks.pcm_readbacks_pinned = walks.pcm_readbacks_pageable = 0
     got, readers = zip(*(port(t) for t in tracks))
     wav_dir = os.path.join(os.path.dirname(os.path.dirname(enc_path)),
                            "wavs")
     written = disc_to_wavs(plain.path, wav_dir, config=conf)
+    samples = {n: TrackReader(AOBReader(enc_path, 1, decrypt=port_hook),
+                              t, config=conf).read_all()
+               for n, (t, r) in enumerate(zip(tracks, readers), 1)
+               if r.codec == "PCM"}
     launches = {k: fn.launches for k, fn in counters.items()}
     launches["output_stage_narrow"] = output_stage.narrow_launches
-    # each PCM track decoded twice (the port, then disc_to_wavs), every
-    # time K8 reading the walk's own pinned buffer
-    pcm_decodes = 2 * sum(r.codec == "PCM" for r in readers)
-    _require(walks.pcm_walks_in_place == pcm_decodes
+    # each PCM track decoded packed twice (the port, then disc_to_wavs)
+    # and int32 once, every time K8 reading the walk's own pinned buffer;
+    # the packed output read back into that buffer, the int32 to pageable
+    pcm_packed, pcm_int32 = 2 * len(samples), len(samples)
+    _require(walks.pcm_walks_in_place == pcm_packed + pcm_int32
              and walks.pcm_walks_staged == 0,
              f"the PCM walks: {walks.pcm_walks_in_place} in place, "
-             f"{walks.pcm_walks_staged} staged, of {pcm_decodes} decodes")
+             f"{walks.pcm_walks_staged} staged, of "
+             f"{pcm_packed + pcm_int32} decodes")
+    _require(walks.pcm_readbacks_pinned == pcm_packed
+             and walks.pcm_readbacks_pageable == pcm_int32,
+             f"the PCM readbacks: {walks.pcm_readbacks_pinned} pinned of "
+             f"{pcm_packed} packed decodes, {walks.pcm_readbacks_pageable} "
+             f"pageable of {pcm_int32} int32 ones")
     K1A_PATHS["cppm"] = launches["mlp_filter_arena"]
     # the MLP track reads back narrow (the default): K234n, not K234
     _require(launches["c2_decrypt"] >= 10 and launches["pcm_unpack"] >= 2
@@ -1773,6 +1787,9 @@ def phase_cppm(plain, enc_path: str, n_sectors: int, smi: str):
                                  f"bytes, expected {size}")
         _require(g == w, f"track {n} ({r.codec}): port bytes differ from "
                          "the host path")
+        _require(n not in samples or pack_samples_le(
+            samples[n], r.bits_per_sample) == w,
+            f"track {n}: the int32 decode differs from the host path")
         with open(written[n - 1], "rb") as f:
             wav = f.read()
         hdr = wave_header(r.sample_rate, r.channel_count, r.channel_mask,
@@ -1783,9 +1800,12 @@ def phase_cppm(plain, enc_path: str, n_sectors: int, smi: str):
                                      "differs from header + host bytes")
     print(f"[cppm] encrypted disc, 3 tracks through the port on the card == "
           f"the host path on the plaintext disc ({sum(sizes)} bytes); "
-          f"disc_to_wavs on the plaintext copy: 3 WAVs identical")
+          f"disc_to_wavs on the plaintext copy: 3 WAVs identical; "
+          f"read_all() of the {pcm_int32} PCM tracks identical")
     print(f"[cppm] launches {launches}; PCM walks in place "
-          f"{walks.pcm_walks_in_place}, staged {walks.pcm_walks_staged}")
+          f"{walks.pcm_walks_in_place}, staged {walks.pcm_walks_staged}; "
+          f"readbacks pinned {walks.pcm_readbacks_pinned}, pageable "
+          f"{walks.pcm_readbacks_pageable}")
 
     # walls: best of 3, port and host path interleaved, per track
     print(f"[cppm] {smi}; {n_sectors} sectors, per track best of 3 "

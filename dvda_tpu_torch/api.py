@@ -350,23 +350,36 @@ class TrackReader:
         A tensor is the native walk's own buffer (:meth:`_pcm_walk`,
         pinned on CUDA): the h2d reads it in place.  An array, the Python
         loop's, is staged: copied into pinned memory on CUDA, into a fresh
-        tensor on the CPU."""
+        tensor on the CPU.  On CUDA, packed output that fits its pinned
+        source (:func:`_output_fits`) is read back over that source and
+        returned as a view of it; int32 samples go to fresh memory."""
         dev = self._cfg().resolved_device()
         walks = TrackReader._pcm_on_device
         with global_timer.stage("pcm/unpack"):
             if isinstance(chunks, torch.Tensor):
                 walks.pcm_walks_in_place += 1
-                t = chunks.to(dev, non_blocking=True)
+                src = chunks
             elif dev.type == "cuda":
                 walks.pcm_walks_staged += 1
-                t = torch.empty(chunks.shape, dtype=torch.uint8,
-                                pin_memory=True)
-                t.numpy()[...] = chunks
-                t = t.to(dev, non_blocking=True)
+                src = torch.empty(chunks.shape, dtype=torch.uint8,
+                                  pin_memory=True)
+                src.numpy()[...] = chunks
             else:
                 walks.pcm_walks_staged += 1
-                t = torch.from_numpy(np.array(chunks, np.uint8))
-            return decode_chunks_device(t, bps, ch, nbytes).cpu().numpy()
+                src = torch.from_numpy(np.array(chunks, np.uint8))
+            out = decode_chunks_device(src.to(dev, non_blocking=True), bps,
+                                       ch, nbytes)
+            if dev.type != "cuda":
+                return out.numpy()
+            if src.is_pinned() and _output_fits(src, ch, nbytes):
+                walks.pcm_readbacks_pinned += 1
+                # the h2d, K8 and this d2h run in order on one stream, so
+                # K8's output may overwrite the bytes it was read from
+                src.view(-1).copy_(out.view(-1), non_blocking=True)
+                torch.cuda.current_stream(dev).synchronize()
+                return src.view(out.shape).numpy()
+            walks.pcm_readbacks_pageable += 1
+            return out.cpu().numpy()
 
     def _pcm_walk(self) -> torch.Tensor | None:
         """The native packet walk (host/src/demux.cc) over the track:
@@ -586,6 +599,18 @@ class TrackReader:
 #: walk's own buffer, and those that went through a staging copy
 TrackReader._pcm_on_device.pcm_walks_in_place = 0
 TrackReader._pcm_on_device.pcm_walks_staged = 0
+#: PCM decodes on CUDA since the last reset whose output was read back
+#: into their pinned source, and those read back into fresh pageable memory
+TrackReader._pcm_on_device.pcm_readbacks_pinned = 0
+TrackReader._pcm_on_device.pcm_readbacks_pageable = 0
+
+
+def _output_fits(chunks: torch.Tensor, ch: int, nbytes: int) -> bool:
+    """Whether K8's packed output, uint8 ``[2n, ch * nbytes]``, has the
+    bytes of its source ``chunks`` ``[n, chunk_size]``: so at 16 and 24
+    bits, and never for int32 samples (``nbytes`` 0)."""
+    n, csize = chunks.shape
+    return nbytes > 0 and 2 * n * ch * nbytes == n * csize
 
 
 def open_disc(audio_ts_path: str | os.PathLike, device: str | None = None,

@@ -672,6 +672,62 @@ def test_pcm_walk_uploads_in_place(dev, tmp_path, monkeypatch):
     assert (walks.pcm_walks_in_place, walks.pcm_walks_staged) == (2, 0)
 
 
+@pytest.mark.parametrize("bits", [16, 24])
+def test_pcm_readback_into_walk_buffer(dev, tmp_path, monkeypatch, bits):
+    """A packed decode on the card reads K8's output back over the walk's
+    own pinned buffer: the bytes land at that buffer's address, no other
+    host tensor of the track's size is made and nothing goes through
+    ``.cpu()``; one ``pcm_readbacks_pinned`` a decode.  An int32 decode
+    (``read_all()``) reads back into fresh pageable memory, once."""
+    spec = PcmTrackSpec(pcm_frames=9600, seed=bits, sample_rate=96000,
+                        bits_per_sample=bits, channel_assignment=17)
+    layout = build_disc(str(tmp_path / "AUDIO_TS"), [[spec]])
+
+    def reader(device):
+        return open_disc(layout.path, config=DecodeConfig(device=device)) \
+            .open_titleset(1).open_title(1).open_track(1).open_reader()
+
+    want, samples = reader("cpu").read_all_packed(), reader("cpu").read_all()
+    made, readbacks = [], []
+    empty, cpu = torch.empty, torch.Tensor.cpu
+
+    def spy_empty(*args, **kw):
+        out = empty(*args, **kw)
+        if (out.device.type == "cpu"
+                and out.numel() * out.element_size() >= len(want)):
+            made.append((out.data_ptr(), out.is_pinned()))
+        return out
+
+    def spy_cpu(self, *args, **kw):
+        readbacks.append(self.numel() * self.element_size())
+        return cpu(self, *args, **kw)
+
+    monkeypatch.setattr(torch, "empty", spy_empty)
+    monkeypatch.setattr(torch.Tensor, "cpu", spy_cpu)
+    walks = TrackReader._pcm_on_device
+    monkeypatch.setattr(walks, "pcm_readbacks_pinned", 0)
+    monkeypatch.setattr(walks, "pcm_readbacks_pageable", 0)
+
+    def counts():
+        return walks.pcm_readbacks_pinned, walks.pcm_readbacks_pageable
+
+    r = reader("cuda")
+    chunks = r._pcm_chunks()
+    out = r._pcm_on_device(chunks, bits, r.channel_count, bits // 8)
+    assert out.ctypes.data == chunks.data_ptr()
+    assert out.nbytes == chunks.numel() == len(want)
+    assert out.tobytes() == want
+    assert made == [(chunks.data_ptr(), True)] and readbacks == []
+    assert counts() == (1, 0)
+    got = reader("cuda").read_all_packed()
+    assert type(got) is bytes and got == want
+    assert len(made) == 2 and all(p for _, p in made) and readbacks == []
+    assert counts() == (2, 0)
+    decoded = reader("cuda").read_all()
+    assert np.array_equal(decoded, samples)
+    assert counts() == (2, 1) and readbacks == [decoded.nbytes]
+
+
 def _mix_disc(path):
     mlp = MlpSynthConfig(channel_assignment=17, substream_count=2,
                          sample_rate=96000, n_frames=48, seed=6,

@@ -174,6 +174,49 @@ def test_pcm_walk_in_place_matches_loop_walk(tmp_path, monkeypatch, bits):
     assert len(walked) == 2 and len(unpacked) == 4 and samples.shape[0]
 
 
+@pytest.mark.parametrize("channels", [1, 2, 3, 4, 5, 6])
+@pytest.mark.parametrize("bits", [16, 20, 24])
+def test_packed_output_fits_its_source(bits, channels):
+    """The rule by which K8's output on the card is read back over its
+    pinned source: it holds exactly where the output has its chunks'
+    bytes.  So for every packed decode ``read_all_packed()`` makes (16 and
+    24 bits, bps/8 bytes a sample), never for a 20-bit track's WAV bytes
+    (3 a sample) and never for int32 samples (``nbytes`` 0)."""
+    rng = np.random.default_rng(bits * 10 + channels)
+    chunks = torch.from_numpy(rng.integers(
+        0, 256, (50, chunk_size(bits, channels)), dtype=np.uint8))
+    for nbytes in (0, 2, 3):
+        out = decode_chunks_device(chunks, bits, channels, nbytes)
+        same = out.numel() * out.element_size() == chunks.numel()
+        assert api._output_fits(chunks, channels, nbytes) == (
+            nbytes > 0 and same)
+    wav_bytes = 3 if bits == 20 else bits // 8
+    assert api._output_fits(chunks, channels, wav_bytes) == (bits != 20)
+
+
+@pytest.mark.skipif(not host.available(),
+                    reason="native host library unavailable")
+@pytest.mark.parametrize("bits", [16, 20, 24])
+def test_cpu_decode_counts_no_readback(tmp_path, monkeypatch, bits):
+    """On the CPU device no decode reads back from a card: packed and
+    int32 decodes, through either walk, leave both readback counters at
+    0 while the walk counters see every decode."""
+    layout = _pcm_disc(tmp_path, bits)
+    walks = TrackReader._pcm_on_device
+    for name in ("pcm_walks_in_place", "pcm_walks_staged",
+                 "pcm_readbacks_pinned", "pcm_readbacks_pageable"):
+        monkeypatch.setattr(walks, name, 0)
+    for kw in ({}, dict(use_native_demux=False, io_batch_sectors=3)):
+        track = open_disc(layout.path, config=DecodeConfig(
+            device="cpu", **kw)).open_titleset(1).open_title(1) \
+            .open_track(1)
+        assert track.open_reader().read_all_packed()
+        assert track.open_reader().read_all().shape[0]
+    assert (walks.pcm_walks_in_place, walks.pcm_walks_staged) == (2, 2)
+    assert (walks.pcm_readbacks_pinned, walks.pcm_readbacks_pageable) == (
+        0, 0)
+
+
 def _mixed_disc(tmp_path):
     """The disc of tests/test_batch.py: PCM + MLP in title 1, PCM in 2."""
     mlp = MlpSynthConfig(channel_assignment=1, n_frames=16, seed=2,
