@@ -11,7 +11,8 @@ Phases, each printing a line; any failure propagates (non-zero exit):
    memory and stack per kernel (a stack frame in any kernel fails);
 3. synthesis: a 30-second 5.1/96k/24 MLP disc, and a three-track
    CPPM-encrypted disc — that MLP stream, 30 s of PCM 5.1/96k/24 and 30 s
-   of PCM 2.0/48k/16 — with a plaintext copy;
+   of PCM 2.0/48k/16 — with a plaintext copy; and an 8-second loud
+   2.0/192k/24 MLP disc (the benchmark's ``mlp20_192k24``);
 4. kernels: each kernel against its plain PyTorch version on the card,
    bit-exact (tolerance 0: the decode is integer arithmetic), at the shapes
    the main paths give it (K1 also on lane-leading residuals, writing
@@ -81,6 +82,17 @@ Phases, each printing a line; any failure propagates (non-zero exit):
    and
    ``decode_native`` with each builder, best of 3 alternating, with the
    ``mlp/arena-build`` stage of each;
+5d. stereo 192k: the 2.0/192k disc's first chunk (768 chains, one
+   substream of 16 blocks x 80 samples, one 12-bit channel pair) through
+   the main path's chunk program and its redo at tiers 16 and 0, K1a and
+   each output stage call == its plain version on the same inputs, one
+   launch each, the chunk overflowing the 12-bit tier, with K1a's and
+   K234n's card times; then the disc through ``read_all_packed()`` in
+   both modes, narrow on and off, with ``native_pack=False`` and
+   ``drain_thread=False``: each == host-complete, pipelined in one
+   section, K1a and K234 once a chunk, K234n once per chunk run again,
+   and ``decode_native.mlp_chunks_redone``, zeroed with the launch
+   counters, equal to the decode's ``info["redone"]``;
 6. PCM + CPPM path: each track of the encrypted disc through a decrypting
    ``AOBReader`` and the port's ``TrackReader(...).read_all_packed()``,
    and the plaintext copy through ``dvda_tpu_torch.batch.disc_to_wavs``,
@@ -180,6 +192,20 @@ HEADLINE = dict(channel_assignment=17, substream_count=2, bits_per_sample=24,
                 block_size=40, major_sync_every=8, restart_every=8, seed=7,
                 fir_across_restart=False, params_update_prob=0.0)
 SECONDS = 30
+#: the stereo 192k disc (the benchmark's mlp20_192k24, 8 s): 2 ch in one
+#: substream, 192 kHz / 24-bit, 2 blocks x 80 samples per frame, restart
+#: + major sync every 8 frames (1,280-sample chains), output shifts past
+#: the 12-bit pair tier and int16, so the narrow readback runs its first
+#: chunks again and settles wide
+STEREO = dict(channel_assignment=1, substream_count=1, bits_per_sample=24,
+              sample_rate=192000, n_frames=9600, blocks_per_frame=2,
+              block_size=80, major_sync_every=8, restart_every=8, seed=13,
+              fir_across_restart=False, params_update_prob=0.3,
+              out_shift_range=(6, 8))
+#: its chunk: 768 chains (the chunk rule at 2 channels: 256 x 6 / 2
+#: chains, of 1,280 samples each, so twice the 5.1 headline chunk's
+#: samples)
+STEREO_CHUNK = 768
 #: headline chunk geometry: 256 chains of 16 blocks x 40 samples,
 #: 8 frames of 80 samples per chain
 CHUNK, NB0, S0, L0 = 256, 16, 40, 80
@@ -332,6 +358,24 @@ def phase_synth(work: str):
           f"{len(spec.mlp_stream) / 1e6:.2f} MB MLP stream in "
           f"{time.perf_counter() - t0:.1f} s")
     return layout, spec.mlp_stream, cfg, spec
+
+
+def phase_synth_stereo(work: str):
+    """The 8-second stereo 192k disc: its layout."""
+    from dvda_tpu_torch.testutil import (MlpSynthConfig, MlpTrackSpec,
+                                         build_disc, synth_mlp_stream)
+
+    t0 = time.perf_counter()
+    cfg = MlpSynthConfig(**STEREO)
+    spec = MlpTrackSpec(mlp_stream=synth_mlp_stream(cfg),
+                        pcm_frames=cfg.total_pcm_frames,
+                        sample_rate=cfg.sample_rate,
+                        channel_assignment=cfg.channel_assignment)
+    layout = build_disc(os.path.join(work, "STEREO", "AUDIO_TS"), [[spec]])
+    print(f"[synth] {cfg.total_pcm_frames / cfg.sample_rate:.0f} s "
+          f"2.0/192k/24 disc: {len(spec.mlp_stream) / 1e6:.2f} MB MLP "
+          f"stream in {time.perf_counter() - t0:.1f} s")
+    return layout
 
 
 def phase_synth_cppm(work: str, mlp_spec):
@@ -1521,6 +1565,181 @@ def phase_modes(layout, smi: str):
     K1A_PATHS["modes"] = k1_total
 
 
+def _stereo_kernels(stream):
+    """K1a and the output stage on the stereo 192k disc's first chunk as
+    the main path builds it (the parse of its frames, ``mp_pack``, 24-bit
+    pack, narrow readback at tier 12): one substream of NB = 16 blocks of
+    S = 80 samples (chains of 1,280 dependent steps), one 12-bit channel
+    pair.  The main path's chunk program runs on it, then its redo at
+    tier 16 and wide, with each kernel call held against its plain
+    version on the same inputs, bit-exact on the card (K234n's flag rows
+    included), and counted as one launch of its kernel from zeroed
+    counts.  The chunk overflows the 12-bit tier, as the main path's redo
+    needs.  Then K1a's and K234n's card times at this chunk."""
+    import torch
+
+    from dvda_tpu_torch.codecs.mlp import native_engine as ne
+    from dvda_tpu_torch.ops.chunk_filter import (chunk_filter,
+                                                 chunk_filter_reference)
+    from dvda_tpu_torch.ops.chunk_lanes import chunk_layout
+    from dvda_tpu_torch.ops.rematrix import (output_stage,
+                                             output_stage_reference)
+
+    dev = torch.device("cuda", 0)
+    fpc, S = STEREO["restart_every"], STEREO["block_size"]
+    NB, L = STEREO["blocks_per_frame"] * fpc, STEREO["blocks_per_frame"] * S
+    inc = ne.host.parse_mlp_stream_begin(stream)
+    try:
+        inc.step(fpc * STEREO_CHUNK + fpc)  # the first chunk's frames
+        v = inc.view()
+        _require(v.status == 0 and v.substream_count == 1,
+                 "parse of the stereo chunk failed")
+        arenas, spec = ne._build_chunk_arenas(
+            v, [(v.sub[0], 0, S, NB, 0)], 0, STEREO_CHUNK, STEREO_CHUNK,
+            NB * S, L, 2, 24, 0, 0,
+            ne._max_matrix_slots(v.mat_active[:STEREO_CHUNK * fpc]),
+            narrow=12)
+    finally:
+        inc.close()
+    arenas = ne.arenas_to_device(*arenas, spec, dev)
+    lay = chunk_layout(spec)
+    _require([g[:2] for g in lay.groups] == [(NB, S)]
+             and lay.subs[0][0] == STEREO_CHUNK,
+             f"stereo chunk: filter launches {[g[:2] for g in lay.groups]}"
+             f", {lay.subs[0][0]} chains")
+    seen, calls = [], {}
+
+    def k1a(*args, **kw):
+        got = chunk_filter(*args, **kw)
+        err = _max_err(got, chunk_filter_reference(*args, **kw))
+        _require(err == 0, f"K1a stereo chunk: max |kernel - plain| = {err}")
+        seen.append(("K1a", tuple(got.shape)))
+        calls["K1a"] = args, kw
+        return got
+
+    def k234(*args, tier=0, **kw):
+        calls[tier] = args, dict(kw, tier=tier)
+        got = output_stage(*args, tier=tier, **kw)
+        err = _max_err(got, output_stage_reference(*args, tier=tier, **kw))
+        _require(err == 0, f"K234{'n' if tier else ''} stereo chunk tier "
+                           f"{tier}: max |kernel - plain| = {err}")
+        seen.append((tier, tuple(got.shape),
+                     int(got[-1, -1].item()) if tier else None))
+        return got
+
+    _zero_launches()
+    ne.chunk_filter, ne.output_stage = k1a, k234
+    try:
+        out, tier, redo = ne._chunk_program(*arenas, spec)
+        redo(16)
+        redo(0)
+    finally:
+        ne.chunk_filter, ne.output_stage = chunk_filter, output_stage
+    torch.cuda.synchronize()
+    launches = (chunk_filter.launches, output_stage.narrow_launches,
+                output_stage.launches)
+    _require(tier == 12 and [x[0] for x in seen] == ["K1a", 12, 16, 0]
+             and launches == (1, 2, 1),
+             f"stereo chunk: tier {tier}, calls {seen}, launches K1a, "
+             f"K234n, K234 {launches}")
+    flag12 = seen[1][2]
+    _require(not flag12 & 1, f"stereo chunk: fits the 12-bit tier (flag "
+                             f"{flag12}), so the main path would not redo it")
+    print(f"[kernels] K1a mlp_filter_arena stereo 192k first chunk "
+          f"({STEREO_CHUNK} chains, 1 substream, NB={NB} S={S}: "
+          f"{NB * S} dependent steps; output {seen[0][1]}): bit-exact; "
+          f"output stage on it, tier 12 {seen[1][1]} flag {flag12}, tier 16 "
+          f"{seen[2][1]} flag {seen[2][2]}, wide {seen[3][1]}: bit-exact; "
+          f"launches K1a {launches[0]}, K234n {launches[1]}, K234 "
+          f"{launches[2]}")
+    args, kw = calls["K1a"]
+    ms, ev = _times(lambda: chunk_filter(*args, **kw), 20)
+    args, kw = calls[12]
+    out_ms, out_ev = _times(lambda: output_stage(*args, **kw), 20)
+    print(f"[kernels] stereo 192k first chunk on the card: K1a {ms:.4f} ms "
+          f"({ev:.4f} ms per call back to back; {ms * 1e6 / (NB * S):.1f} "
+          f"ns per dependent step of {NB * S}), K234n tier 12 {out_ms:.4f} "
+          f"ms ({out_ev:.4f} ms back to back)")
+
+
+def phase_stereo(layout, smi: str):
+    """The stereo 192k disc's first chunk through K1a and the output stage
+    against their plain versions (:func:`_stereo_kernels`); then the disc
+    through ``read_all_packed()`` on the card,
+    printed with the [main] decodes (standard and device Huffman, narrow
+    readback on and off) and the [modes] ones (the numpy arena builder,
+    the drain without its side stream): each == host-complete, on the
+    pipelined path in one section of 768-chain chunks, K1a once and K234
+    once a chunk, K5 once a chunk in device Huffman, never K1; the track
+    settled wide.  Read back narrow, the chunks pushed before the tier
+    settled launch K234n at tier 12, overflow, and are run again wide
+    (their K234), each counted in ``decode_native.mlp_chunks_redone``;
+    the later chunks launch K234 at once."""
+    import numpy as np
+
+    from dvda_tpu_torch.codecs.mlp import native_engine as ne
+    from dvda_tpu_torch.codecs.mlp.track import assemble_track_stream
+    from dvda_tpu_torch.config import DecodeConfig
+    from dvda_tpu_torch.ops.chunk_filter import chunk_filter
+    from dvda_tpu_torch.ops.chunk_lanes import chunk_lanes
+    from dvda_tpu_torch.ops.huffman_decode import decode_residuals_device
+    from dvda_tpu_torch.ops.mlp_filter import mlp_filter_blocks_tl
+    from dvda_tpu_torch.ops.rematrix import output_stage
+
+    reader = _open_track(layout, DecodeConfig(device="cuda"))
+    stream, bnd, probe_end = assemble_track_stream(reader.aob,
+                                                   reader.track.span)
+    _stereo_kernels(stream)
+    ref = ne.decode_host_complete(
+        stream, bnd, probe_end, reader.parameters, True,
+        DecodeConfig().resolved_parse_threads()).reshape(-1)
+    n_chunks = -(-STEREO["n_frames"] // (STEREO["restart_every"]
+                                         * STEREO_CHUNK))
+    confs = {"[main] standard": {}, "[main] standard_wide":
+             dict(narrow_d2h=False), "[main] device_huffman":
+             dict(device_huffman=True), "[main] device_huffman_wide":
+             dict(device_huffman=True, narrow_d2h=False),
+             "[modes] standard native_pack off": dict(native_pack=False),
+             "[modes] standard drain_thread off": dict(drain_thread=False)}
+    k1a_total = 0
+    for label, kw in confs.items():
+        conf = DecodeConfig(device="cuda", **kw)
+        narrow, huffman = conf.resolved_narrow_d2h(), conf.device_huffman
+        _zero_launches()
+        t = time.perf_counter()
+        r = _open_track(layout, conf)
+        out = r.read_all_packed()
+        wall = time.perf_counter() - t
+        info, counted = r.decode_info, ne.decode_native.mlp_chunks_redone
+        k1a, k10 = chunk_filter.launches, chunk_lanes.launches
+        k5 = decode_residuals_device.launches
+        k234, k234n = output_stage.launches, output_stage.narrow_launches
+        _require(np.array_equal(np.frombuffer(out, np.uint8), ref),
+                 f"{label} stereo 192k: bytes differ from host-complete")
+        _require((info["path"], info["sections"], info["chunks"])
+                 == ("pipelined", 1, n_chunks)
+                 and k1a == k234 == n_chunks
+                 and mlp_filter_blocks_tl.launches == 0
+                 and k234n == info["redone"]
+                 and k10 == k5 == (n_chunks if huffman else 0),
+                 f"{label} stereo 192k: {info['path']} path, "
+                 f"{info['sections']} sections, {info['chunks']} chunks, "
+                 f"launches K10 {k10}, K1a {k1a}, K5 {k5}, K234 {k234}, "
+                 f"K234n {k234n}")
+        _require(info["tier"] == 0 and counted == info["redone"]
+                 and (info["redone"] >= 1) == narrow,
+                 f"{label} stereo 192k: tier {info['tier']}, "
+                 f"{info['redone']} chunks run again, {counted} counted")
+        k1a_total += k1a
+        print(f"{label} stereo 192k: == host-complete, {wall:.4f} s; "
+              f"{info['chunks']} chunks of {STEREO_CHUNK} chains; launches "
+              f"K10 {k10}, K1a {k1a}, K5 {k5}, K234 {k234}, K234n {k234n}; "
+              f"tier {info['tier']}, {info['redone']} chunks run again "
+              f"(mlp_chunks_redone {counted}), {info['drained']} bytes "
+              f"drained; {smi}")
+    K1A_PATHS["stereo"] = k1a_total
+
+
 def phase_profile(layout, stream, smi: str):
     """One chunk program call (``uniform_arena_pipeline``) on the
     headline's first chunk, arenas on the card, under ``torch.profiler``
@@ -2529,12 +2748,15 @@ def _records_only(what: str, want: dict, label: str) -> dict:
 
 
 def _zero_launches() -> None:
-    """Every kernel wrapper's launch counter to 0."""
+    """Every kernel wrapper's launch counter to 0, and the count of chunks
+    the narrow readback ran again."""
+    from dvda_tpu_torch.codecs.mlp.native_engine import decode_native
     from dvda_tpu_torch.utils.profiling import kernel_counters
 
     for pairs in kernel_counters().values():
         for fn, attr in pairs:
             setattr(fn, attr, 0)
+    decode_native.mlp_chunks_redone = 0
 
 
 def _launched(*names: str) -> dict:
@@ -2695,12 +2917,14 @@ def main() -> int:
     os.makedirs(work)
     try:
         layout, stream, cfg, spec = phase_synth(work)
+        stereo = phase_synth_stereo(work)
         plain, enc_path, n_sectors = phase_synth_cppm(work, spec)
         kernels = phase_kernels(stream, plain, enc_path)
         launches = phase_main(layout, cfg, smi)
         phase_profile(layout, stream, smi)
         phase_unfused(smi)
         phase_modes(layout, smi)
+        phase_stereo(stereo, smi)
         launches.update(phase_cppm(plain, enc_path, n_sectors, smi))
         phase_tiers(smi)
         general_layout, general_frames = phase_synth_general(work)

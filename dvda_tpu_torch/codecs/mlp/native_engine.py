@@ -866,10 +866,18 @@ class _Drain:
         self._tail = stream
 
     def push(self, dev_out: torch.Tensor, n: int, tier: int = 0,
-             redo=None, _idx: int | None = None) -> None:
+             redo=None) -> None:
         """Queue the copy of ``dev_out[:n]``: rows of the output, or at
         ``tier`` 12 or 16 K234n's narrow rows, whose flag sits in the last
-        row; ``redo(tier)`` gives the chunk's output at another tier."""
+        row; ``redo(tier)`` gives the chunk's output at another tier.
+        Then read the flags that have landed."""
+        self._queue(dev_out, n, tier, redo)
+        self.poll()
+
+    def _queue(self, dev_out: torch.Tensor, n: int, tier: int, redo,
+               _idx: int | None = None) -> None:
+        """:meth:`push` without the flags' reading; ``_idx``: the chunk
+        whose place the rows take (a new chunk's at the end)."""
         if _idx is None:
             _idx = len(self._chunks)
             self._chunks.append(None)
@@ -890,7 +898,6 @@ class _Drain:
                 self._late.append((_idx, tier, flag_at, redo))
         if tier and (self._side or early):
             self._open.append((_idx, tier, flag_at, self._landed(), redo))
-        self.poll()
 
     def _landed(self):
         """An event that completes when the copies queued so far on the
@@ -925,8 +932,12 @@ class _Drain:
         if flag & 1:
             return
         self.redone += 1
-        self.push(redo(retier), self._chunks[idx][0], retier,
-                  redo if retier else None, _idx=idx)
+        decode_native.mlp_chunks_redone += 1
+        # the flags behind this one are read by the caller's loop, so no
+        # range of this stage holds another
+        with global_timer.stage("mlp/redo"):
+            self._queue(redo(retier), self._chunks[idx][0], retier,
+                        redo if retier else None, _idx=idx)
 
     def throttle(self) -> None:
         """Wait for the first flag once 3 narrow chunks were pushed before
@@ -1168,6 +1179,11 @@ def decode_native(stream: bytes, boundaries: np.ndarray, probe_end: int,
     finally:
         with global_timer.stage("mlp/decode-setup"):
             inc.close()  # frees the zero-copy parse buffers
+
+
+#: chunks run again at a wider tier by the process's decodes since it was
+#: last set to 0 (each decode's own count is its ``info["redone"]``)
+decode_native.mlp_chunks_redone = 0
 
 
 def _decode_pipelined(inc, stream, boundaries, probe_end, parameters,

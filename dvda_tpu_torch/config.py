@@ -148,9 +148,11 @@ class DecodeConfig:
         return min(255, max(0, self.huffman_split))
 
     def resolved_chunk_chains(self, out_ch: int = 6) -> int:
-        """``chunk_chains`` clamped to >=1, scaled by ``6/out_ch`` (rounded)
-        so a chunk's byte volume matches the 6-channel shape for any
-        channel count (output is byte-identical for any chunk size)."""
+        """``chunk_chains`` clamped to >=1, scaled by ``6/out_ch`` (rounded):
+        restart chains a chunk, whatever a chain's length, so a chunk of
+        longer chains holds more samples (768 chains of 1,280 samples at
+        2.0/192k: twice the 5.1/96k chunk's).  The output is byte-identical
+        for any chunk size."""
         return max(1, round(max(1, self.chunk_chains) * 6 / max(1, out_ch)))
 
     def resolved_device(self) -> torch.device:

@@ -261,6 +261,51 @@ def test_decode_on_card_matches_cpu(dev, chunk_chains):
     assert np.array_equal(got, ref)
 
 
+@pytest.mark.parametrize("narrow", [True, False])
+def test_stereo_192k_on_card(dev, monkeypatch, narrow):
+    """MLP 2.0/192k/24, loud (the benchmark's ``mlp20_192k24`` at a small
+    size): the chunk's K1a launch, one substream of S = 80 and NB = 16 (a
+    chain of T = 1,280 dependent steps), and its K234n launches, one
+    12-bit channel pair, each equal on the card to its plain version on
+    the same inputs; the chunk, overflowing the 12-bit tier, is run again
+    wide; the bytes equal the CPU's."""
+    cfg = MlpSynthConfig(channel_assignment=1, sample_rate=192000,
+                         block_size=80, n_frames=96, seed=13,
+                         fir_across_restart=False, out_shift_range=(6, 8))
+    stream = synth_mlp_stream(cfg)
+    params = StreamParameters(BPS_CODE[24], 0xF, RATE_CODE[192000], 0xF, 1)
+    bnd = np.zeros(0, np.int64)
+    seen = []
+
+    def k1a(a4, a2, a1, spec, residuals=None):
+        out = chunk_filter(a4, a2, a1, spec, residuals)
+        assert [g[:2] for g in chunk_layout(spec).groups] == [(16, 80)]
+        assert torch.equal(out, chunk_filter_reference(a4, a2, a1, spec,
+                                                       residuals))
+        seen.append("K1a")
+        return out
+
+    def k234(*args, tier=0, **kw):
+        out = output_stage(*args, tier=tier, **kw)
+        assert torch.equal(out, output_stage_reference(*args, tier=tier,
+                                                       **kw))
+        seen.append(tier)
+        return out
+
+    monkeypatch.setattr(ne, "chunk_filter", k1a)
+    monkeypatch.setattr(ne, "output_stage", k234)
+    info = {}
+    got = decode_native(stream, bnd, len(stream), params, True,
+                        DecodeConfig(device="cuda", narrow_d2h=narrow),
+                        info=info)
+    assert seen == (["K1a", 12, 0] if narrow else ["K1a", 0])
+    assert (info["path"], info["chunks"], info["tier"],
+            info["redone"]) == ("pipelined", 1, 0, int(narrow))
+    ref = decode_native(stream, bnd, len(stream), params, True,
+                        DecodeConfig(device="cpu", narrow_d2h=False))
+    assert np.array_equal(got, ref)
+
+
 def _general_tables(dev, **kw):
     subs, frames = general_inputs(**kw)
     return ([{k: v if k == "S" else torch.from_numpy(np.asarray(v)).to(dev)

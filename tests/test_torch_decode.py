@@ -1,6 +1,7 @@
 """The port's whole MLP decode on the CPU (plain versions of K1 and K234)
 against dvda_tpu's device pipeline (``host_complete=False``, jitted on the
-CPU), at stream, reader and reference-oracle level.  Bit-exact."""
+CPU), at stream, reader and reference-oracle level, and at reader level
+against the benchmark's plain reference decoder.  Bit-exact."""
 
 import numpy as np
 import pytest
@@ -12,6 +13,9 @@ from dvda_tpu.codecs.mlp import native_engine as ne
 from dvda_tpu.codecs.params import StreamParameters
 from dvda_tpu.config import DecodeConfig as JaxConfig
 from dvda_tpu.utils.wav import wave_header
+from benchmark.fmt.params import StreamParameters as PlainParameters
+from benchmark.reference.expected import pack_le
+from benchmark.reference.mlp_spec import MlpDecoder
 from dvda_tpu_torch import DecodeConfig, open_disc
 from dvda_tpu_torch import host as port_host
 from dvda_tpu_torch.codecs.mlp.native_engine import (_Drain,
@@ -28,6 +32,15 @@ torch.set_num_threads(1)
 
 UNIFORM = dict(fir_across_restart=False, params_update_prob=0.0)
 FIVE_ONE = dict(channel_assignment=17, substream_count=2)
+#: output shifts of 6-7 bits: 24-bit samples past the 12-bit pair tier and
+#: int16, so the narrow readback runs its first chunks again, wide
+LOUD = (6, 8)
+#: MLP 2.0/192k/24 at a small size of the benchmark's ``mlp20_192k24``: one
+#: substream, 2 blocks of 80 samples a frame, a restart every 8 frames
+#: (chains of 1,280 samples), parameter updates, loud
+STEREO_192K = dict(channel_assignment=1, sample_rate=192000,
+                   block_size=80, n_frames=64, fir_across_restart=False,
+                   out_shift_range=LOUD)
 STREAMS = {
     "stereo": dict(channel_assignment=1, n_frames=40, restart_every=4,
                    major_sync_every=4, seed=1, **UNIFORM),
@@ -39,6 +52,7 @@ STREAMS = {
     "param_updates": dict(n_frames=40, restart_every=4, major_sync_every=4,
                           seed=12, fir_across_restart=False,
                           params_update_prob=0.4, **FIVE_ONE),
+    "2.0_192k": dict(seed=13, **STEREO_192K),
 }
 
 
@@ -71,6 +85,8 @@ def test_decode_native_matches_jax(name, chunk_chains):
     got, ref, info = both(stream, params, want_packed, chunk_chains)
     assert got.dtype == ref.dtype and np.array_equal(got, ref)
     assert info["chunks"] >= (2 if chunk_chains == 2 else 1)
+    if cfg.out_shift_range == LOUD:
+        assert info["path"] == "pipelined" and info["redone"] >= 1
     hc = decode_host_complete(stream, np.zeros(0, np.int64), len(stream),
                               params, want_packed)
     assert np.array_equal(got, hc)
@@ -164,13 +180,46 @@ def test_threaded_parse_decode_matches_jax(monkeypatch, name, huffman,
     assert (repairs, redos) == ((1, 0) if damaged else (0, 0))
 
 
-def _disc(tmp_path, seeds=(5,)):
-    cfgs = [MlpSynthConfig(sample_rate=96000, n_frames=48, seed=s,
-                           **FIVE_ONE, **UNIFORM) for s in seeds]
+def test_chunk_rule_counts_chains():
+    """A chunk holds ``chunk_chains`` restart chains scaled by 6/out_ch,
+    whatever a chain's length: 256 at 6 channels (640-sample chains at
+    5.1/96k), 768 at 2 channels (1,280-sample chains at 2.0/192k).  The
+    pipelined decode of the 2.0/192k stream's 8 chains takes chunks of 6
+    chains at ``chunk_chains=2``, as dvda_tpu's does."""
+    cfg = DecodeConfig()
+    assert cfg.resolved_chunk_chains(6) == cfg.resolved_chunk_chains() == 256
+    assert cfg.resolved_chunk_chains(2) == 768
+    c = MlpSynthConfig(**STREAMS["2.0_192k"])
+    got, ref, info = both(synth_mlp_stream(c), stream_params(c), True, 2)
+    assert np.array_equal(got, ref)
+    assert (info["path"], info["sections"], info["chunks"]) == (
+        "pipelined", 1, 2)
+
+
+#: the reader discs: the 5.1/96k track, and the loud 2.0/192k/24 one
+DISCS = {"5.1_96k": dict(sample_rate=96000, n_frames=48, **FIVE_ONE,
+                         **UNIFORM),
+         "2.0_192k": STEREO_192K}
+
+
+def _disc(tmp_path, seeds=(5,), kind="5.1_96k"):
+    cfgs = [MlpSynthConfig(seed=s, **DISCS[kind]) for s in seeds]
     tracks = [MlpTrackSpec(mlp_stream=synth_mlp_stream(c),
-                           pcm_frames=c.total_pcm_frames, sample_rate=96000,
-                           channel_assignment=17) for c in cfgs]
-    return build_disc(str(tmp_path / "AUDIO_TS"), [tracks])
+                           pcm_frames=c.total_pcm_frames,
+                           sample_rate=c.sample_rate,
+                           channel_assignment=c.channel_assignment)
+              for c in cfgs]
+    return build_disc(str(tmp_path / "AUDIO_TS"), [tracks]), cfgs
+
+
+def _plain_wav(cfg) -> bytes:
+    """The WAV bytes of ``cfg``'s stream by the benchmark's plain
+    reference decoder (``benchmark/reference/mlp_spec.py``)."""
+    dec = MlpDecoder(PlainParameters(BPS_CODE[cfg.bits_per_sample], 0xF,
+                                     RATE_CODE[cfg.sample_rate], 0xF,
+                                     cfg.channel_assignment))
+    dec.decode_bytes(synth_mlp_stream(cfg))
+    return pack_le(dec.take_frames(), cfg.bits_per_sample).tobytes()
 
 
 def _reader(path, n, config):
@@ -178,13 +227,25 @@ def _reader(path, n, config):
             .open_track(n).open_reader())
 
 
-def test_reader_matches_jax(tmp_path):
-    layout = _disc(tmp_path)
-    cpu = DecodeConfig(device="cpu")
+@pytest.mark.parametrize("narrow", [True, False])
+@pytest.mark.parametrize("kind", sorted(DISCS))
+def test_reader_matches_jax(tmp_path, kind, narrow):
+    """``read_all_packed`` and ``read_all`` equal dvda_tpu's, and the
+    packed bytes the plain reference decoder's, with the narrow readback
+    on and off.  Both tracks take the pipelined path in one section; the
+    loud 2.0/192k track, read back narrow, runs a chunk again."""
+    layout, (cfg,) = _disc(tmp_path, kind=kind)
+    cpu = DecodeConfig(device="cpu", narrow_d2h=narrow)
     jax_track = DVDA(layout.path).open_titleset(1).open_title(1).open_track(1)
     jcfg = JaxConfig(host_complete=False)
-    packed = _reader(layout.path, 1, cpu).read_all_packed()
+    reader = _reader(layout.path, 1, cpu)
+    packed = reader.read_all_packed()
     assert packed == jax_track.open_reader(config=jcfg).read_all_packed()
+    assert packed == _plain_wav(cfg)
+    info = reader.decode_info
+    assert (info["path"], info["sections"]) == ("pipelined", 1)
+    if cfg.out_shift_range == LOUD:
+        assert (info["tier"], info["redone"] >= 1) == (0, narrow)
     samples = _reader(layout.path, 1, cpu).read_all()
     assert np.array_equal(samples,
                           jax_track.open_reader(config=jcfg).read_all())
@@ -193,7 +254,7 @@ def test_reader_matches_jax(tmp_path):
 def test_reader_matches_reference_oracle(tmp_path, ref_oracle):
     """Multi-track disc (probe, packet boundaries, tail-to-sync rule)
     against the reference dvda2wav's WAV files."""
-    layout = _disc(tmp_path, seeds=(1, 2))
+    layout, _ = _disc(tmp_path, seeds=(1, 2))
     golden = ref_oracle.run_dvda2wav(layout.path, str(tmp_path / "gold"))
     for n in (1, 2):
         reader = _reader(layout.path, n, DecodeConfig(device="cpu"))
@@ -208,7 +269,7 @@ def test_reader_matches_reference_oracle(tmp_path, ref_oracle):
 def range_discs(tmp_path_factory):
     from test_torch_pcm import _pcm_disc
 
-    return {"mlp": _disc(tmp_path_factory.mktemp("mlp")).path,
+    return {"mlp": _disc(tmp_path_factory.mktemp("mlp"))[0].path,
             "pcm16": _pcm_disc(tmp_path_factory.mktemp("pcm"), 16).path}
 
 

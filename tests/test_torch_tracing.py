@@ -2,7 +2,8 @@
 capture, and under one each stage a range of its name, the new stages
 holding no other stage, every stage either one that
 ``benchmark/metrics/decode_unstaged_ms.py`` subtracts or nested in one,
-the CPPM decryptor's copies inside its decrypt inside the walk, and
+the narrow readback's redo a stage of its own inside one, the CPPM
+decryptor's copies inside its decrypt inside the walk, and
 ``utils.profiling``'s ``device_idle_share`` on a faked card."""
 
 import importlib.util
@@ -15,6 +16,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from dvda_tpu_torch import DecodeConfig, host, open_disc
 from dvda_tpu_torch.api import TrackReader
+from dvda_tpu_torch.codecs.mlp.native_engine import decode_native
 from dvda_tpu_torch.container.aob import AOBReader
 from dvda_tpu_torch.cppm.decrypt import CppmDecryptor
 from dvda_tpu_torch.ops.mlp_filter import mlp_filter_blocks_tl
@@ -94,6 +96,28 @@ def mlp_capture(mlp_disc):
 
 
 @pytest.fixture(scope="module")
+def loud_capture(tmp_path_factory):
+    """A loud MLP 2.0/192k/24 track (one 1,280-sample chain a restart,
+    output shifts past the 12-bit pair tier): its one chunk, pushed at
+    tier 12, overflows and runs again wide.  Also the track's
+    ``decode_info`` and the chunks ``mlp_chunks_redone`` counted."""
+    c = MlpSynthConfig(channel_assignment=1, sample_rate=192000,
+                       block_size=80, n_frames=48, seed=13,
+                       fir_across_restart=False, out_shift_range=(6, 8))
+    layout = build_disc(str(tmp_path_factory.mktemp("loud") / "AUDIO_TS"),
+                        [[MlpTrackSpec(mlp_stream=synth_mlp_stream(c),
+                                       pcm_frames=c.total_pcm_frames,
+                                       sample_rate=192000,
+                                       channel_assignment=1)]])
+    reader = _mlp_reader(layout.path)
+    before = decode_native.mlp_chunks_redone
+    (data,), ranges, entered = _captured([reader])
+    assert data
+    return (data, ranges, entered, reader.decode_info,
+            decode_native.mlp_chunks_redone - before)
+
+
+@pytest.fixture(scope="module")
 def cppm_capture(tmp_path_factory):
     """An encrypted disc (a PCM and an MLP track) read through the
     decryptor's hook."""
@@ -145,9 +169,10 @@ def test_new_stages_hold_no_stage(mlp_capture):
             assert not held, f"{outer[2]} holds {held}"
 
 
-@pytest.mark.parametrize("capture", ["mlp_capture", "cppm_capture"])
+@pytest.mark.parametrize("capture", ["mlp_capture", "cppm_capture",
+                                     "loud_capture"])
 def test_every_stage_is_top_level_or_nested_in_one(request, capture):
-    _, ranges, _ = request.getfixturevalue(capture)
+    ranges = request.getfixturevalue(capture)[1]
     top = _top_level()
     listed = [r for r in ranges if r[2] in top]
     for r in ranges:
@@ -156,6 +181,25 @@ def test_every_stage_is_top_level_or_nested_in_one(request, capture):
             assert not held_by, f"listed {r[2]} inside {held_by}"
         else:
             assert held_by, f"{r[2]} is neither listed nor inside a listed stage"
+
+
+def test_redo_is_a_stage_of_its_own(loud_capture):
+    """The chunk run again is one ``mlp/redo`` range, holding no other
+    stage, inside the top-level stage that read its flag (on the CPU the
+    push's, whose copy has landed as it returns); the decode's
+    ``info`` and the process-wide counter count it."""
+    _, ranges, entered, info, counted = loud_capture
+    assert (info["path"], info["chunks"], info["tier"]) == ("pipelined", 1,
+                                                            0)
+    assert entered["mlp/redo"] == info["redone"] == counted == 1
+    top = _top_level()
+    assert "mlp/redo" not in top
+    for r in ranges:
+        if r[2] == "mlp/redo":
+            assert not [o for o in ranges if _inside(o, r)]
+            # where the flag was read: on the CPU at once, in the push
+            assert [o[2] for o in ranges if _inside(r, o)
+                    and o[2] in top] == ["mlp/chunk-launch"]
 
 
 def test_cppm_copies_inside_decrypt_inside_the_walk(cppm_capture):
